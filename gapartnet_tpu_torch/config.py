@@ -1,0 +1,96 @@
+"""Static model configuration and the constants the port needs.
+
+Counterpart of `GAPartNetConfig` in the JAX package (models/gapartnet.py),
+with the same fields and defaults so that the two compare equal field for
+field.  The TPU-only fields (`hash_probe_impl`, `rulebook_impl`,
+`remat_blocks`) are kept for that comparison only: the port implements one
+path for each (sorted-key probing, searchsorted rulebooks, no remat).
+"""
+
+import dataclasses
+from typing import Optional, Tuple
+
+NUM_PART_CLASSES = 10
+# Per part class (0..9): symmetry type index (reference gapartnet.yaml:34).
+SYMMETRY_INDICES = (0, 1, 3, 3, 2, 0, 3, 2, 4, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GAPartNetConfig:
+    """Mirrors gapartnet.yaml model.init_args plus the fixed capacities."""
+
+    in_channels: int = 6
+    num_part_classes: int = NUM_PART_CLASSES
+    backbone_type: str = "SparseUNet"
+    channels: Tuple[int, ...] = (16, 32, 48, 64, 80, 96, 112)
+    block_repeat: int = 2
+    # instance_seg_cfg (gapartnet.yaml:20-26)
+    ball_query_radius: float = 0.04
+    max_num_points_per_query: int = 50
+    min_num_points_per_proposal: int = 5
+    max_num_points_per_query_shift: int = 300
+    score_fullscale: float = 28.0
+    score_scale: float = 50.0
+    # semantic losses (training slice; carried for config equality)
+    ignore_sem_label: int = -100
+    use_sem_focal_loss: bool = True
+    sem_focal_alpha: Optional[Tuple[float, ...]] = None
+    use_sem_dice_loss: bool = True
+    symmetry_indices: Tuple[int, ...] = SYMMETRY_INDICES
+    # validation / inference
+    val_score_threshold: float = 0.09
+    val_min_num_points_per_proposal: int = 3
+    val_nms_iou_threshold: float = 0.3
+    val_ap_iou_threshold: float = 0.5
+    # clustering: the port implements "hash" only
+    clustering_impl: str = "hash"
+    # (cell, label) node-table capacity PER SET (0 = N); overflow is counted
+    # in counters["ccl_node_overflow"]
+    hash_node_capacity: int = 2048
+    # same-label candidate cap per node (0 = derive from hash_max_degree);
+    # overflow is counted in counters["ccl_cand_truncated"]
+    hash_cand_cap: int = 0
+    # post-distance-check neighbour-table width (same counter)
+    hash_max_degree: int = 24
+    # TPU-only probe variant selector; the port always probes sorted keys
+    hash_probe_impl: str = "auto"
+    offset_loss_weight: float = 1.0
+    # conv compute precision; the port's kernel computes float32 only
+    conv_compute_dtype: str = "float32"
+    # TPU-only: rematerialization in backward
+    remat_blocks: bool = False
+    # TPU-only rulebook lookup selector; the port always uses searchsorted
+    # and applies `input_grid_extent` as a bound on neighbour links
+    rulebook_impl: str = "dense"
+    # proposal UNets: the port implements the dense eval path only
+    proposal_conv_impl: str = "auto"
+    # live-grid capacity per cloud for the dense proposal UNets; overflow is
+    # counted in counters["dense_grids_dropped"]
+    dense_grid_capacity: int = 96
+    # level-0 coordinate bound: out-of-extent voxels lose neighbour links
+    input_grid_extent: Tuple[int, int, int] = (288, 288, 288)
+    voxel_size: Tuple[float, float, float] = (0.01, 0.01, 0.01)
+    max_points: int = 20000
+    max_proposals: int = 128
+    max_instances: int = 64
+    level_capacity_divisors: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
+    level_capacities: Optional[Tuple[int, ...]] = None
+    proposal_level_divisors: Tuple[int, ...] = (1, 2)
+    proposal_voxel_capacity: int = 8192
+
+    def input_capacities(self) -> Tuple[int, ...]:
+        """Per-level voxel capacity of the backbone's sparse grids."""
+        if self.level_capacities is not None:
+            if len(self.level_capacities) != len(self.level_capacity_divisors):
+                raise ValueError(
+                    f"level_capacities {self.level_capacities} and "
+                    f"level_capacity_divisors {self.level_capacity_divisors} "
+                    "differ in length"
+                )
+            return tuple(
+                min(max(int(c), 64), self.max_points)
+                for c in self.level_capacities
+            )
+        return tuple(
+            max(self.max_points // d, 64) for d in self.level_capacity_divisors
+        )
