@@ -10,9 +10,9 @@ path for each (sorted-key probing, searchsorted rulebooks, no remat).
 import dataclasses
 from typing import Optional, Tuple
 
+from gapartnet_tpu_torch.constants import SYMMETRY_INDICES
+
 NUM_PART_CLASSES = 10
-# Per part class (0..9): symmetry type index (reference gapartnet.yaml:34).
-SYMMETRY_INDICES = (0, 1, 3, 3, 2, 0, 3, 2, 4, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +31,7 @@ class GAPartNetConfig:
     max_num_points_per_query_shift: int = 300
     score_fullscale: float = 28.0
     score_scale: float = 50.0
-    # semantic losses (training slice; carried for config equality)
+    # semantic losses
     ignore_sem_label: int = -100
     use_sem_focal_loss: bool = True
     sem_focal_alpha: Optional[Tuple[float, ...]] = None
@@ -62,7 +62,9 @@ class GAPartNetConfig:
     # TPU-only rulebook lookup selector; the port always uses searchsorted
     # and applies `input_grid_extent` as a bound on neighbour links
     rulebook_impl: str = "dense"
-    # proposal UNets: the port implements the dense eval path only
+    # proposal UNets: "dense" (conv3d over (G, S^3) grids), "sparse" (the
+    # submanifold kernels over the proposal voxels) or "auto" = dense at
+    # eval, sparse at train
     proposal_conv_impl: str = "auto"
     # live-grid capacity per cloud for the dense proposal UNets; overflow is
     # counted in counters["dense_grids_dropped"]
@@ -76,6 +78,8 @@ class GAPartNetConfig:
     level_capacity_divisors: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
     level_capacities: Optional[Tuple[int, ...]] = None
     proposal_level_divisors: Tuple[int, ...] = (1, 2)
+    # voxel capacity of the sparse (train) proposal grid; overflow is
+    # counted in counters["proposal_voxels_dropped"]; 0 = max_points
     proposal_voxel_capacity: int = 8192
 
     def input_capacities(self) -> Tuple[int, ...]:
@@ -94,3 +98,9 @@ class GAPartNetConfig:
         return tuple(
             max(self.max_points // d, 64) for d in self.level_capacity_divisors
         )
+
+    def proposal_capacities(self) -> Tuple[int, ...]:
+        """Per-level voxel capacity of the sparse proposal grids, clamped to
+        the 2N entries (each valid point appears once per clustering set)."""
+        v0 = min(self.proposal_voxel_capacity or self.max_points, 2 * self.max_points)
+        return tuple(max(v0 // d, 64) for d in self.proposal_level_divisors)

@@ -10,6 +10,12 @@
 // features (B, V, Cin) f32, nbr (B, 27, V) int32, W (27, Cin, Cout) f32,
 // out (B, V, Cout) f32, fp32 accumulation.
 //
+// The same kernel is the dgrad of the custom VJP (pallas_conv.py:95-103,
+// sparse_conv.py:294-295): the wrapper launches it on the output gradient
+// with flip(W, 0) transposed, so Cin and Cout swap (outputs up to 192 wide,
+// the 64-wide channel tiles below).  Its bound is the forward's: the same
+// neighbour pairs at 2 * Cin * Cout FLOP each.
+//
 // What bounds it on this card: for the backbone's shapes it is a
 // gather-GEMM with K = 27 * Cin.  One level-0 16->16 conv at V = 20000 is
 // 0.28 GFLOP (dense 27 taps) against about 4.7 MB of compulsory traffic, so

@@ -9,8 +9,12 @@ Geometry (GridHierarchy) is built once per forward outside the modules.
     ResBlocks C -> C;
   * ResBlock: conv1 + BN + ReLU, conv2 + BN, add the shortcut (identity, or
     a pointwise conv + BN), final ReLU;
-  * stem: SubMConv(in, C0) + BN + ReLU;
+  * stem: SubMConv(in, C0) + BN + ReLU; without_stem (the Score / NPCS
+    UNets): BN + ReLU on the input only;
   * all convs bias-free.
+
+Every MaskedBatchNorm follows the module's train / eval mode
+(`nn.Module.train()`), which carries the JAX package's `train` flag.
 
 Parameters keep the JAX package's names and layouts: submanifold kernels
 (27, Cin, Cout) and strided kernels (8, Cin, Cout), tap-major, x-major with
@@ -118,14 +122,15 @@ class UBlock(nn.Module):
 class SparseUNet(nn.Module):
     """Stem + UBlock.  Returns (B, V0, channels[0]) voxel features."""
 
-    def __init__(self, in_channels: int, channels: Sequence[int], block_repeat: int = 2):
+    def __init__(self, in_channels: int, channels: Sequence[int], block_repeat: int = 2,
+                 without_stem: bool = False):
         super().__init__()
-        self.stem_conv = SubMConv(in_channels, channels[0])
+        self.stem_conv = None if without_stem else SubMConv(in_channels, channels[0])
         self.stem_bn = MaskedBatchNorm(channels[0])
         self.ublock = UBlock(tuple(channels), block_repeat, 0)
 
     def forward(self, features: torch.Tensor, hierarchy: GridHierarchy) -> torch.Tensor:
         lv0 = hierarchy.levels[0]
-        x = self.stem_conv(features, lv0.subm_nbr)
+        x = features if self.stem_conv is None else self.stem_conv(features, lv0.subm_nbr)
         x = torch.relu(self.stem_bn(x, lv0.voxel_mask))
         return self.ublock(x, hierarchy)

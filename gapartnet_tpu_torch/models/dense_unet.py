@@ -1,14 +1,21 @@
-"""Dense 3D-conv proposal UNet: the eval ScoreNet / NPCSNet.
+"""The Score / NPCS proposal UNet: one parameter tree, a sparse and a dense forward.
 
-Counterpart of models/dense_unet.py.  The Score/NPCS UNets run as dense
-convs over per-proposal S^3 grids (S = score_fullscale = 28), G grids at a
-time, with the layout (G, S, S, S, C) at the module's boundary as in the
-JAX package.  With features zeroed at unoccupied sites a dense SAME conv
-equals the submanifold conv at the occupied sites, so every block re-masks
-unoccupied sites after its pointwise tail; downsampled occupancy is a
-2x2x2 any-pool and the up conv is the exact adjoint of the k2 s2 conv.
+Counterpart of models/dense_unet.py and of `SparseUNet(without_stem=True)`
+in models/backbone.py.  The flax tree holds one `score_unet` and one
+`npcs_unet` whose names (`stem_bn`, `ublock.enc0.conv1.kernel`, ...) serve
+both forwards, so the port keeps one module, `ProposalUNet`:
 
-The JAX package computes these convs through XLA's conv, outside any
+  * `forward(features, hierarchy)`: the sparse UNet over the proposal
+    voxels through the submanifold kernels (the train path);
+  * `dense(x, occ)`: the same network as dense convs over per-proposal S^3
+    grids (S = score_fullscale = 28), G grids at a time, layout
+    (G, S, S, S, C) at the boundary as in the JAX package (the eval path).
+    With features zeroed at unoccupied sites a dense SAME conv equals the
+    submanifold conv at the occupied sites, so every block re-masks
+    unoccupied sites after its pointwise tail; downsampled occupancy is a
+    2x2x2 any-pool and the up conv is the exact adjoint of the k2 s2 conv.
+
+The JAX package computes the dense convs through XLA's conv, outside any
 Pallas kernel, so the port uses `F.conv3d` for the 3x3x3 and the k2 s2
 convs (the (G, S, S, S, C) tensor permuted to (G, C, S, S, S) is already in
 channels_last_3d memory format) and an einsum for the up conv.  Kernels
@@ -20,10 +27,8 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from gapartnet_tpu_torch.models.backbone import _kernel
-from gapartnet_tpu_torch.models.norm import MaskedBatchNorm
+from gapartnet_tpu_torch.models.backbone import ResBlock, SparseUNet, UBlock
 
 
 def _mask(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
@@ -68,91 +73,43 @@ def downsample_occupancy(occ: torch.Tensor) -> torch.Tensor:
     return o.permute(0, 1, 3, 5, 2, 4, 6).reshape(g, sx // 2, sy // 2, sz // 2, 8).any(dim=-1)
 
 
-class DenseSubMConv(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__()
-        self.kernel = _kernel(27, in_channels, out_channels)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense_subm_conv(x, self.kernel)
-
-
-class DenseResBlock(nn.Module):
-    """Parameter twin of backbone.ResBlock over a dense grid."""
-
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__()
-        if in_channels != out_channels:
-            self.shortcut_kernel = _kernel(in_channels, out_channels)
-            self.shortcut_bn = MaskedBatchNorm(out_channels)
-        else:
-            self.shortcut_kernel = None
-        self.conv1 = DenseSubMConv(in_channels, out_channels)
-        self.bn1 = MaskedBatchNorm(out_channels)
-        self.conv2 = DenseSubMConv(out_channels, out_channels)
-        self.bn2 = MaskedBatchNorm(out_channels)
-
-    def forward(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
-        if self.shortcut_kernel is None:
-            shortcut = x
-        else:
-            shortcut = self.shortcut_bn(torch.matmul(x, self.shortcut_kernel), occ)
-        h = self.bn1(self.conv1(x), occ)
-        h = _mask(torch.relu(h), occ)
-        h = self.bn2(self.conv2(h), occ)
-        return _mask(torch.relu(h + shortcut), occ)
+def _dense_res_block(blk: ResBlock, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    if blk.shortcut_kernel is None:
+        shortcut = x
+    else:
+        shortcut = blk.shortcut_bn(torch.matmul(x, blk.shortcut_kernel), occ)
+    h = blk.bn1(dense_subm_conv(x, blk.conv1.kernel), occ)
+    h = _mask(torch.relu(h), occ)
+    h = blk.bn2(dense_subm_conv(h, blk.conv2.kernel), occ)
+    return _mask(torch.relu(h + shortcut), occ)
 
 
-class DenseUBlock(nn.Module):
-    """Parameter twin of backbone.UBlock over a dense grid."""
-
-    def __init__(self, channels: Sequence[int], block_repeat: int):
-        super().__init__()
-        self.block_repeat = block_repeat
-        c0 = channels[0]
-        for r in range(block_repeat):
-            self.add_module(f"enc{r}", DenseResBlock(c0, c0))
-        self.has_child = len(channels) > 1
-        if self.has_child:
-            c1 = channels[1]
-            self.down_kernel = _kernel(8, c0, c1)
-            self.down_bn = MaskedBatchNorm(c1)
-            self.ublock = DenseUBlock(channels[1:], block_repeat)
-            self.up_kernel = _kernel(8, c1, c0)
-            self.up_bn = MaskedBatchNorm(c0)
-            self.add_module("dec0", DenseResBlock(2 * c0, c0))
-            for r in range(1, block_repeat):
-                self.add_module(f"dec{r}", DenseResBlock(c0, c0))
-
-    def forward(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
-        for r in range(self.block_repeat):
-            x = getattr(self, f"enc{r}")(x, occ)
-        if not self.has_child:
-            return x
-        skip = x
-        occ2 = downsample_occupancy(occ)
-        x = dense_down_conv(x, self.down_kernel)
-        x = _mask(torch.relu(self.down_bn(x, occ2)), occ2)
-        x = self.ublock(x, occ2)
-        x = dense_up_conv(x, self.up_kernel)
-        x = _mask(torch.relu(self.up_bn(x, occ)), occ)
-        x = torch.cat([x, skip], dim=-1)
-        for r in range(self.block_repeat):
-            x = getattr(self, f"dec{r}")(x, occ)
+def _dense_ublock(ub: UBlock, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    for r in range(ub.block_repeat):
+        x = _dense_res_block(getattr(ub, f"enc{r}"), x, occ)
+    if not ub.has_child:
         return x
+    skip = x
+    occ2 = downsample_occupancy(occ)
+    x = dense_down_conv(x, ub.down_kernel)
+    x = _mask(torch.relu(ub.down_bn(x, occ2)), occ2)
+    x = _dense_ublock(ub.ublock, x, occ2)
+    x = dense_up_conv(x, ub.up_kernel)
+    x = _mask(torch.relu(ub.up_bn(x, occ)), occ)
+    x = torch.cat([x, skip], dim=-1)
+    for r in range(ub.block_repeat):
+        x = _dense_res_block(getattr(ub, f"dec{r}"), x, occ)
+    return x
 
 
-class DenseProposalUNet(nn.Module):
-    """Dense twin of SparseUNet(channels, without_stem=True).
-
-    Input x (G, S, S, S, C) with zeros at unoccupied sites and occ
-    (G, S, S, S) bool.  Returns (G, S, S, S, channels[0])."""
+class ProposalUNet(SparseUNet):
+    """SparseUNet(channels, without_stem=True) with a dense twin forward."""
 
     def __init__(self, channels: Sequence[int], block_repeat: int = 2):
-        super().__init__()
-        self.stem_bn = MaskedBatchNorm(channels[0])
-        self.ublock = DenseUBlock(tuple(channels), block_repeat)
+        super().__init__(channels[0], channels, block_repeat, without_stem=True)
 
-    def forward(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    def dense(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+        """x (G, S, S, S, C) with zeros at unoccupied sites, occ (G, S, S, S)
+        bool -> (G, S, S, S, channels[0])."""
         x = _mask(torch.relu(self.stem_bn(x, occ)), occ)
-        return self.ublock(x, occ)
+        return _dense_ublock(self.ublock, x, occ)

@@ -1,11 +1,12 @@
-"""Dual-set proposal clustering and dense proposal re-voxelization.
+"""Dual-set proposal clustering and proposal re-voxelization.
 
-Counterpart of models/grouping.py for the eval path: `cluster_single` with
-the hash implementation, `proposal_cube_coords` and
-`segmented_dense_voxelize_single`.  Every sample owns exactly 2N proposal
-"entries" (each valid point appears once per clustering set) and at most P
-proposals; everything downstream indexes through (entry_point,
-entry_proposal, masks).
+Counterpart of models/grouping.py: `cluster_single` with the hash
+implementation, `proposal_cube_coords`, `segmented_voxelize_single` (the
+sparse proposal grid of the train path) and
+`segmented_dense_voxelize_single` (the dense grid of the eval path).  Every
+sample owns exactly 2N proposal "entries" (each valid point appears once
+per clustering set) and at most P proposals; everything downstream indexes
+through (entry_point, entry_proposal, masks).
 """
 
 from typing import NamedTuple
@@ -14,7 +15,9 @@ import torch
 
 from gapartnet_tpu_torch.ops.hash_ccl import hash_connected_components
 from gapartnet_tpu_torch.ops.segment import segment_max, segment_min, segment_sum
-from gapartnet_tpu_torch.ops.voxelize import div_const
+from gapartnet_tpu_torch.ops.voxelize import dedup_keys, div_const, pack_coords
+
+PROPOSAL_CELL = 32  # virtual cell edge per proposal (> score_fullscale 28)
 
 
 class SampleProposals(NamedTuple):
@@ -29,6 +32,12 @@ class SampleProposals(NamedTuple):
     num_dropped: torch.Tensor       # () int32 proposals beyond max_proposals
     ccl_overflow: torch.Tensor      # () int32 hash-CCL node-table overflow
     ccl_cand_truncated: torch.Tensor  # () int32 hash-CCL candidate/degree drops
+
+
+class ProposalGrid(NamedTuple):
+    keys: torch.Tensor            # (2N,) sorted proposal-grid voxel keys
+    num_voxels: torch.Tensor      # () int32
+    entry_voxel_id: torch.Tensor  # (2N,) voxel id per entry, -1 invalid
 
 
 def stack_proposals(props) -> SampleProposals:
@@ -157,6 +166,28 @@ def proposal_cube_coords(
     scaled = scaled + offs[pl]
     coords = torch.clamp(torch.floor(scaled).to(torch.int32), 0, int(score_fullscale) - 1)
     return coords, pidc, mask
+
+
+def segmented_voxelize_single(
+    pt_xyz: torch.Tensor,
+    prop: SampleProposals,
+    rand_a: torch.Tensor,
+    rand_b: torch.Tensor,
+    max_proposals: int,
+    score_fullscale: float = 28.0,
+    score_scale: float = 50.0,
+) -> ProposalGrid:
+    """Normalize each proposal into the fullscale cube and voxelize (unit
+    voxels) into the PROPOSAL_CELL key space: proposal p owns the 32^3 cell
+    at (p % 32, (p // 32) % 32, p // 1024) of a super-grid."""
+    coords, pidc, mask = proposal_cube_coords(
+        pt_xyz, prop, rand_a, rand_b, max_proposals, score_fullscale, score_scale
+    )
+    c = PROPOSAL_CELL
+    cell = torch.stack([pidc % c, (pidc // c) % c, pidc // (c * c)], dim=-1)
+    keys = pack_coords(cell * c + coords)
+    unique_keys, entry_voxel_id, num_voxels = dedup_keys(keys, mask)
+    return ProposalGrid(keys=unique_keys, num_voxels=num_voxels, entry_voxel_id=entry_voxel_id)
 
 
 def segmented_dense_voxelize_single(

@@ -2,7 +2,9 @@
 
 `params_from_jax` takes the JAX model's variables, `{"params": ...,
 "batch_stats": ...}` as nested dicts of numpy arrays, and returns the
-port's state_dict.  The port's module tree mirrors the flax tree, so a flax
+port's state_dict.  A JAX gradient tree given as `{"params": grads}` maps
+the same way onto the names of `named_parameters()`, which is how the
+tests compare gradients.  The port's module tree mirrors the flax tree, so a flax
 path `backbone/ublock/enc0/conv1/kernel` becomes
 `backbone.ublock.enc0.conv1.kernel`, with these renamings:
 

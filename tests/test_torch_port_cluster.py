@@ -5,9 +5,13 @@ degree truncation, dropped proposals) must be identical, including cases
 that hit the candidate cap and the node cap so the counters are non-zero.
 The JAX side runs jitted (as in the model), where division by the cell
 size becomes multiplication by its float32 reciprocal; the port does the
-same.
+same.  The proposal grids that follow clustering are compared too: the
+dense cells of the eval path, and the sparse proposal grid of the train
+path (keys, voxel counts and each entry's voxel, exactly, for given jitter
+draws).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,3 +133,29 @@ def test_dense_voxelize_matches():
     differ = tcell != jcell
     assert differ.sum() <= max(1, 1e-3 * (jcell >= 0).sum())
     assert (tcell >= 0).sum() > 0
+
+
+def test_proposal_cell_equal():
+    assert tg.PROPOSAL_CELL == jg.PROPOSAL_CELL
+
+
+@pytest.mark.parametrize("seed,p", [(0, 16), (1, 40), (2, 16)])
+def test_segmented_voxelize_matches(seed, p):
+    xyz, sem, valid, off = _cloud(seed, n=400)
+    jp = jg.cluster_single(jnp.asarray(xyz), jnp.asarray(off), jnp.asarray(sem),
+                           jnp.asarray(valid), 0.04, 50, 300, 3, p, probe_impl="sort")
+    tp = tg.cluster_single(torch.from_numpy(xyz), torch.from_numpy(off), torch.from_numpy(sem),
+                           torch.from_numpy(valid), 0.04, 3, p)
+    rand = np.random.RandomState(100 + seed).rand(2, 3).astype(np.float32)
+    jgrid = jax.jit(lambda x, pr, a, b: jg.segmented_voxelize_single(x, pr, a, b, p))(
+        jnp.asarray(xyz), jp, jnp.asarray(rand[0]), jnp.asarray(rand[1]))
+    tgrid = tg.segmented_voxelize_single(torch.from_numpy(xyz), tp, torch.from_numpy(rand[0]),
+                                         torch.from_numpy(rand[1]), p)
+    for f in jgrid._fields:
+        np.testing.assert_array_equal(getattr(tgrid, f).numpy(), np.asarray(getattr(jgrid, f)),
+                                      err_msg=f)
+    assert int(tgrid.num_voxels) > 0
+    # proposals beyond the first 32 land in the next row of super-grid cells
+    if p > 32:
+        assert (tp.entry_proposal.numpy() >= 32).any()
+        assert ((tgrid.keys.numpy() >> 10) & 1023).max() >= 32

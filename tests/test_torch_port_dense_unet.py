@@ -1,5 +1,5 @@
-"""Dense proposal UNet (eval ScoreNet / NPCSNet): the port against the JAX
-module, with the JAX weights carried over by params_from_jax and random
+"""Dense proposal UNet (eval ScoreNet / NPCSNet): the port's dense forward
+of ProposalUNet against the JAX module, with the JAX weights carried over by params_from_jax and random
 batch statistics, at rtol = atol = 1e-4 (float32 convs, sums in another
 order)."""
 
@@ -10,7 +10,7 @@ import torch
 
 from gapartnet_tpu.models.dense_unet import DenseProposalUNet as JaxUNet
 from gapartnet_tpu.models.dense_unet import downsample_occupancy as jax_down_occ
-from gapartnet_tpu_torch.models.dense_unet import DenseProposalUNet, downsample_occupancy
+from gapartnet_tpu_torch.models.dense_unet import ProposalUNet, downsample_occupancy
 from gapartnet_tpu_torch.weights import params_from_jax
 
 TOL = 1e-4
@@ -41,11 +41,11 @@ def test_dense_unet_matches():
                  "batch_stats": _random_stats(variables["batch_stats"], rng)}
     want = np.asarray(jax.jit(lambda v, a, o: jm.apply(v, a, o, False))(variables, x, occ))
 
-    tm = DenseProposalUNet(channels, 2)
+    tm = ProposalUNet(channels, 2)
     tm.load_state_dict(params_from_jax(variables), strict=True)
     tm.eval()
     with torch.no_grad():
-        got = tm(torch.from_numpy(x), torch.from_numpy(occ)).numpy()
+        got = tm.dense(torch.from_numpy(x), torch.from_numpy(occ)).numpy()
     assert got.shape == want.shape == (3, 8, 8, 8, 8)
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     # unoccupied sites stay zero

@@ -69,3 +69,51 @@ def test_entry_runs_on_cpu():
     assert tuple(npcs_preds.shape) == (1, 40000, 3)
     assert bool(torch.isfinite(score_preds).all()) and bool(torch.isfinite(npcs_preds).all())
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_train_setup_fits_every_cloud():
+    """B distinct rotated clouds; every capacity is the maximum of the
+    per-cloud rules; the labels, regions and overrides follow each cloud."""
+    from gapartnet_tpu.data.loader import generate_instance_info as jax_instance_info
+    from gapartnet_tpu_torch.entry import _fitted_capacities, train_setup
+
+    cfg, batch, sem, off = train_setup(GAPartNetConfig(), batch_size=3, seed=1, device="cpu")
+    pts = batch.points.numpy()
+    assert pts.shape == (3, 20000, 6)
+    assert not np.array_equal(pts[0], pts[1]) and not np.array_equal(pts[1], pts[2])
+    d = np.load(BENCH_CLOUD)
+    # rotations about z keep z and the xy radius
+    np.testing.assert_allclose(pts[:, :, 2], np.tile(d["xyz"][None, :, 2], (3, 1)), atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(pts[:, :, :2], axis=-1),
+                               np.tile(np.linalg.norm(d["xyz"][:, :2], axis=-1)[None], (3, 1)),
+                               atol=1e-5)
+    fitted = [_fitted_capacities(GAPartNetConfig(), pts[i, :, :3], d["sem_labels"],
+                                 d["instance_labels"])[0] for i in range(3)]
+    assert cfg.level_capacities == tuple(np.max([f["level_capacities"] for f in fitted], 0))
+    assert cfg.input_grid_extent == tuple(np.max([f["input_grid_extent"] for f in fitted], 0))
+    for k in ("hash_node_capacity", "hash_cand_cap", "hash_max_degree", "dense_grid_capacity"):
+        assert getattr(cfg, k) == max(f[k] for f in fitted), k
+    for i in range(3):
+        reg, nppi, isl, k = jax_instance_info(pts[i], d["sem_labels"], d["instance_labels"])
+        np.testing.assert_array_equal(batch.instance_regions[i].numpy(), reg)
+        np.testing.assert_array_equal(batch.num_points_per_instance[i, :k].numpy(), nppi)
+        assert (batch.num_points_per_instance[i, k:].numpy() == 0).all()
+        ins = d["instance_labels"]
+        want_off = np.where((ins >= 0)[:, None], reg[:, :3] - pts[i, :, :3], 0.0)
+        np.testing.assert_allclose(off[i].numpy(), want_off, atol=1e-6)
+    np.testing.assert_array_equal(batch.gt_npcs[2].numpy(), d["gt_npcs"])
+    np.testing.assert_array_equal(sem.numpy(), batch.sem_labels.numpy())
+
+
+def test_train_entry_runs_on_cpu():
+    """train_entry's step on the CPU (B = 1): finite losses, zero counters,
+    the loss moves between steps."""
+    from gapartnet_tpu_torch.entry import train_entry
+
+    fn, (batch,) = train_entry(device="cpu", batch_size=1)
+    first = fn(batch)
+    second = fn(batch)
+    assert all(bool(torch.isfinite(v)) for v in first.values())
+    assert all(float(v) == 0 for k, v in first.items() if k.startswith("counters/"))
+    assert float(first["loss/loss_prop_npcs"]) > 0 and float(first["loss/loss_prop_score"]) > 0
+    assert float(second["loss/total_loss"]) != float(first["loss/total_loss"])

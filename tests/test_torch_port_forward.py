@@ -74,9 +74,10 @@ def test_forward_matches_under_overrides(setup):
                         cluster_sem_override=cs, cluster_offset_override=co)
 
     jo = jax.jit(jf)(variables, jbatch, jnp.asarray(sem), jnp.asarray(off))
-    to = tm(tbatch, do_cluster=True, do_score=True, do_npcs=True,
-            cluster_sem_override=torch.from_numpy(sem),
-            cluster_offset_override=torch.from_numpy(off))
+    with torch.no_grad():
+        to = tm(tbatch, do_cluster=True, do_score=True, do_npcs=True,
+                cluster_sem_override=torch.from_numpy(sem),
+                cluster_offset_override=torch.from_numpy(off))
 
     # integer outputs: exactly
     for f in jo.proposals._fields:
@@ -104,7 +105,8 @@ def test_forward_matches_under_overrides(setup):
 def test_forward_matches_without_overrides(setup):
     jm, variables, jbatch, tm, tbatch, _, _ = setup
     jo = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables, jbatch)
-    to = tm(tbatch)
+    with torch.no_grad():
+        to = tm(tbatch)
     np.testing.assert_allclose(to.sem_logits.numpy(), np.asarray(jo.sem_logits), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(to.offset_preds.numpy(), np.asarray(jo.offset_preds), rtol=TOL, atol=TOL)
     np.testing.assert_array_equal(to.sem_preds.numpy(), np.asarray(jo.sem_preds))
@@ -122,10 +124,43 @@ def test_state_dict_names_cover_the_flax_tree(setup):
                                   variables["params"]["sem_seg_head"]["kernel"].T)
 
 
-def test_eval_only():
-    tm = GAPartNet(GAPartNetConfig(**SMALL))
-    with pytest.raises(NotImplementedError):
-        tm(PointCloudBatch(points=torch.zeros(1, 512, 6), point_mask=torch.ones(1, 512, dtype=torch.bool)))
+def test_eval_only(setup):
+    """The train forward returns finite losses (and moves the BN running
+    statistics), and `.eval()` afterwards still gives the eval outputs of
+    the same weights and statistics."""
+    _, variables, _, tm, tbatch, sem, off = setup
+    d = synthetic_batch(np.random.RandomState(0), batch_size=2, num_points=512,
+                        num_parts=4, max_instances=8)
+    labelled = PointCloudBatch.from_numpy(d, "cpu")
+    with torch.no_grad():
+        before = tm(tbatch, do_cluster=True, do_score=True, do_npcs=True,
+                    cluster_sem_override=torch.from_numpy(sem),
+                    cluster_offset_override=torch.from_numpy(off))
+    model = GAPartNet(GAPartNetConfig(**SMALL))
+    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.train()
+    out = model(labelled, do_cluster=True, do_score=True, do_npcs=True,
+                cluster_sem_override=torch.from_numpy(sem),
+                cluster_offset_override=torch.from_numpy(off),
+                jitter=torch.full((2, 3), 0.25))
+    for k in ("loss_sem_seg", "loss_offset_dist", "loss_offset_dir", "loss_prop_score",
+              "loss_prop_npcs"):
+        assert bool(torch.isfinite(getattr(out, k))), k
+    assert float(out.loss_prop_npcs.detach()) > 0 and float(out.loss_prop_score.detach()) > 0
+    out.total_loss.backward()
+    assert model.backbone.stem_conv.kernel.grad is not None
+    moved = model.state_dict()["backbone.stem_bn.running_mean"]
+    assert not torch.equal(moved, tm.state_dict()["backbone.stem_bn.running_mean"])
+
+    # eval with the loaded statistics gives the eval outputs again
+    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.eval()
+    with torch.no_grad():
+        again = model(tbatch, do_cluster=True, do_score=True, do_npcs=True,
+                      cluster_sem_override=torch.from_numpy(sem),
+                      cluster_offset_override=torch.from_numpy(off))
+    for name in ("sem_logits", "offset_preds", "score_logits", "npcs_preds"):
+        torch.testing.assert_close(getattr(again, name), getattr(before, name), rtol=0, atol=0)
 
 
 @pytest.mark.slow
@@ -166,13 +201,38 @@ def test_flagship_bench_cloud_matches():
     jo = jax.jit(lambda v, b, cs, co: jm.apply(
         v, b, train=False, do_cluster=True, do_score=True, do_npcs=True,
         cluster_sem_override=cs, cluster_offset_override=co))(variables, jbatch, jsem, joff)
-    to = tm(tbatch, do_cluster=True, do_score=True, do_npcs=True,
-            cluster_sem_override=tsem, cluster_offset_override=toff)
+    with torch.no_grad():
+        to = tm(tbatch, do_cluster=True, do_score=True, do_npcs=True,
+                cluster_sem_override=tsem, cluster_offset_override=toff)
     for f in jo.proposals._fields:
         np.testing.assert_array_equal(getattr(to.proposals, f).numpy(),
                                       np.asarray(getattr(jo.proposals, f)), err_msg=f)
     for k, v in jo.counters.items():
         assert int(to.counters[k].sum()) == int(np.asarray(v).sum()) == 0, k
     for name in ("sem_logits", "offset_preds", "score_preds", "npcs_preds"):
+        np.testing.assert_allclose(getattr(to, name).numpy(), np.asarray(getattr(jo, name)),
+                                   rtol=TOL, atol=TOL, err_msg=name)
+
+
+def test_sparse_proposal_path_matches_in_eval(setup):
+    """proposal_conv_impl="sparse" at eval: the proposal UNets run sparse
+    through the submanifold convs over the proposal voxels (cube centre
+    placement); the JAX model's outputs on the same path."""
+    jm, variables, jbatch, _, tbatch, sem, off = setup
+    jm_sparse = JaxModel(dataclasses.replace(jm.cfg, proposal_conv_impl="sparse"))
+    jo = jax.jit(lambda v, b, cs, co: jm_sparse.apply(
+        v, b, train=False, do_cluster=True, do_score=True, do_npcs=True,
+        cluster_sem_override=cs, cluster_offset_override=co))(
+            variables, jbatch, jnp.asarray(sem), jnp.asarray(off))
+    tm = GAPartNet(GAPartNetConfig(**SMALL, proposal_conv_impl="sparse"))
+    tm.load_state_dict(params_from_jax(variables), strict=True)
+    tm.eval()
+    with torch.no_grad():
+        to = tm(tbatch, do_cluster=True, do_score=True, do_npcs=True,
+                cluster_sem_override=torch.from_numpy(sem),
+                cluster_offset_override=torch.from_numpy(off))
+    assert to.entry_site is None and to.proposal_grid is not None
+    assert set(to.counters) == set(jo.counters)
+    for name in ("score_logits", "npcs_preds"):
         np.testing.assert_allclose(getattr(to, name).numpy(), np.asarray(getattr(jo, name)),
                                    rtol=TOL, atol=TOL, err_msg=name)

@@ -100,3 +100,36 @@ def test_plain_convs_match():
     jlin = js.linear_conv_apply(jnp.asarray(x), jnp.asarray(w1))
     tlin = ts.linear_conv_apply(torch.from_numpy(x), torch.from_numpy(w1))
     np.testing.assert_allclose(tlin.numpy(), np.asarray(jlin), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("conv", ["down", "inverse", "linear"])
+def test_plain_conv_gradients_match(conv):
+    """Input and weight gradients against jax.vjp, through the dump-slot
+    scatters: the coarse capacity of 64 drops voxels (child_parent = -1).
+    rtol = atol = 1e-4 (each gradient sums over up to 400 rows)."""
+    rng = np.random.RandomState(4)
+    keys = _keys(4)
+    cap_out = 64
+    jd = jax.vmap(lambda k: js.build_downsample(k, cap_out))(jnp.asarray(keys))
+    td = ts.build_downsample(torch.from_numpy(keys), cap_out)
+    assert (td.child_parent.numpy() < 0).any()
+    if conv == "down":
+        x, w = rng.randn(2, 400, 8), rng.randn(8, 8, 12)
+        jf = lambda a, b: js.downsample_conv_apply(a, jd, b, cap_out)
+        tf = lambda a, b: ts.downsample_conv_apply(a, td, b, cap_out)
+    elif conv == "inverse":
+        x, w = rng.randn(2, cap_out, 12), rng.randn(8, 12, 8)
+        jf = lambda a, b: js.inverse_conv_apply(a, jd, b)
+        tf = lambda a, b: ts.inverse_conv_apply(a, td, b)
+    else:
+        x, w = rng.randn(2, 400, 8), rng.randn(8, 5)
+        jf, tf = js.linear_conv_apply, ts.linear_conv_apply
+    x, w = x.astype(np.float32), w.astype(np.float32)
+    out, vjp = jax.vjp(jf, jnp.asarray(x), jnp.asarray(w))
+    g = rng.randn(*out.shape).astype(np.float32)
+    want_x, want_w = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    tf(tx, tw).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_x), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_w), rtol=1e-4, atol=1e-4)
