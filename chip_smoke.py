@@ -9,11 +9,17 @@ It builds the CUDA kernels from `gapartnet_tpu_torch/csrc/` (one nvcc per
 source, in parallel), then:
 
   1. prints the card (nvidia-smi name and power limit), the torch, CUDA and
-     nvcc versions and the kernel build time;
+     nvcc versions, the kernel build time, ptxas's registers and shared
+     memory per kernel and, from `cuobjdump -sass`, each kernel's count of
+     tensor-core (HMMA, HGMMA) and asynchronous-copy (LDGSTS, UBLKCP)
+     instructions; it fails if the forward or wgrad kernel has none of
+     either;
   2. holds the submanifold-conv kernel against its plain PyTorch version on
      every distinct (level, Cin, Cout) of the backbone, on the real
      hierarchy of assets/bench_cloud.npz, and times both with CUDA events
-     (median of 20 launches);
+     around each call (median of 20 launches, wrapper host time included),
+     and the kernel alone by its device time per launch (torch.profiler,
+     median of three windows of 20 launches);
   3. drives the flagship inference forward on the card (bench-cloud
      capacities and clustering overrides, seeded random weights): 5
      warm-ups, then 100 timed requests (median and spread); it checks that
@@ -31,10 +37,11 @@ source, in parallel), then:
      dgrad and wgrad kernels against their plain versions at every distinct
      (V, Cin, Cout) of the backbone and the two proposal UNets, checks that
      the wgrad is bitwise repeatable, and times all six (CUDA events,
-     median of 20); then drives `train_step` (all three stages, Adam 1e-3):
-     3 warm-ups and 20 timed steps, checking the launch counts per step,
-     zero counters, finite losses, a moving loss and moving BN statistics;
-     profiles one step;
+     median of 20) and the three kernels' device time (profiler); then
+     drives `train_step` (all three stages, Adam 1e-3): 3 warm-ups and 20
+     timed steps, checking the launch counts per step, zero counters,
+     finite losses, a moving loss and moving BN statistics; profiles one
+     step;
   6. runs one train step at B = 2 on the card (four times) and on the CPU
      with the same weights, jitter and inputs: integer outputs exactly,
      losses, every parameter's gradient and the updated running statistics
@@ -45,10 +52,19 @@ source, in parallel), then:
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
+
+To compare two versions of the kernels on one card, in one call:
+
+    python3 chip_smoke.py --kernels-only --port-root <other checkout>
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1, 2 and the kernel half of 5 on that checkout's package and
+prints the kernel line (launches null) and the nvidia-smi line.
 """
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -56,10 +72,21 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit.  The kernels
+# compute in 3xTF32 on the tensor cores (three TF32 products per fp32
+# product), so their bound takes a third of the TF32 peak; the CUDA-core
+# fp32 peak gives `bound_fp32_ms`, the bound of the earlier fp32-FMA kernels
+PEAK_TF32_FLOPS = 495e12
+PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+# the kernels of each wrapper, as torch.profiler names them
+KERNEL_NAMES = {"fwd": ("subm_conv_fwd_kernel", "sum_splits_kernel"),
+                "dgrad": ("subm_conv_fwd_kernel", "sum_splits_kernel"),
+                "wgrad": ("subm_conv_wgrad_kernel", "sum_chunks_kernel")}
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UBLKCP")
 TIMED_LAUNCHES = 20
+PROFILE_WINDOWS = 3
 WARMUP_REQUESTS = 5
 TIMED_REQUESTS = 100
 CONVS_PER_FORWARD = 53
@@ -133,6 +160,64 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, runs: int, names):
+    """Device time per call of `fn()` of the kernels whose names contain one
+    of `names`, each launched at most once per call: torch.profiler (CUDA
+    activity) over `runs` calls after one warm-up, each kernel's mean over
+    the launches the profiler recorded.  None if it saw no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count and any(n in e.key for n in names))
+    return us / 1e3 if us > 0 else None
+
+
+def device_ms(fn, runs: int, names):
+    """The median of `_device_ms` over PROFILE_WINDOWS windows: the profiler
+    now and then loses some or all of a window's kernels (hence also the
+    mean over the launches it recorded).  None if it saw none in any
+    window."""
+    got = [ms for ms in (_device_ms(fn, runs, names) for _ in range(PROFILE_WINDOWS))
+           if ms is not None]
+    return statistics.median(got) if got else None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def sass_counts(lib: Path):
+    """{kernel<template args>: {op: count}} of the SASS_OPS instructions in
+    a built library (`cuobjdump -sass`)."""
+    from gapartnet_tpu_torch.ops.subm_conv import find_nvcc
+
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = re.search(r"(subm_conv_fwd_kernel|subm_conv_wgrad_kernel|sum_splits_kernel|"
+                               r"sum_chunks_kernel)", m.group(1))
+            name = (kernel.group(1) if kernel else m.group(1)) + "<" + ",".join(
+                re.findall(r"L[ib](\d+)E", m.group(1))) + ">"
+            current = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
+        elif current is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    current[op] += 1
+    return counts
+
+
 def backbone_conv_shapes(channels, stem_in=6):
     """[(level, Cin, Cout, launches per forward)] of a SparseUNet's convs;
     stem_in=None for a UNet without a stem conv."""
@@ -176,18 +261,19 @@ def phase_kernels(cfg, hierarchy, device, tag="kernel", timed=True):
                   f"max|d| {err:.3e} (max|ref| {scale:.3e})")
             continue
         ms = cuda_ms(lambda: subm_conv(feats, nbr, w), TIMED_LAUNCHES)
+        dev_ms = device_ms(lambda: subm_conv(feats, nbr, w), TIMED_LAUNCHES, KERNEL_NAMES["fwd"])
         plain_ms = cuda_ms(lambda: subm_conv_reference(feats, nbr, w), TIMED_LAUNCHES)
         flops = 2 * cin * cout * pairs
         nbytes = 4 * (v * cin + 27 * v + 27 * cin * cout + v * cout)
-        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+        bound_ms, _ = _bound(flops, nbytes)
         rows.append(dict(
             level=li, cin=cin, cout=cout, V=v, pairs=pairs, per_forward=per_fwd,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            flops=flops, bytes=nbytes,
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_fp32_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS)[0], flops=flops, bytes=nbytes,
         ))
         print(f"[{tag}] level {li} {cin:>3}->{cout:<3} V={v:<6} pairs={pairs:<7} "
-              f"x{per_fwd}/fwd  kernel {ms:.4f} ms  bound {bound_ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  max|d| {err:.3e} (max|ref| {scale:.3e})")
+              f"x{per_fwd}/fwd  call {ms:.4f} ms  device {_fmt(dev_ms)} ms  bound "
+              f"{bound_ms:.4f} ms  plain {plain_ms:.4f} ms  max|d| {err:.3e} (max|ref| {scale:.3e})")
     return rows
 
 
@@ -415,9 +501,18 @@ def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu):
     _check_close("npcs_preds", out_gpu.npcs_preds, out_cpu.npcs_preds, entry_ok)
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+def _bound(flops, nbytes, peak_flops=PEAK_TF32X3_FLOPS):
+    """(ms, what bounds it): the larger of the operations at `peak_flops`
+    and the bytes at the HBM rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _weighted(rows, key, weight):
+    """sum of row[key] * row[weight], or None if any time is missing."""
+    if any(r[key] is None for r in rows if r[weight]):
+        return None
+    return sum(r[key] * r[weight] for r in rows if r[weight])
 
 
 def train_conv_shapes(cfg, hierarchy, prop_hier):
@@ -468,7 +563,7 @@ def phase_train_kernels(shapes):
         bound_ms, bound_by = _bound(flops, nbytes)
         row = dict(net=sh["net"], level=sh["level"], cin=cin, cout=cout, B=b, V=v, pairs=pairs,
                    per_step=sh["per_step"], flops=flops, bytes=nbytes, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   bound_by=bound_by, bound_fp32_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS)[0])
         for kind, (kernel, plain, rtol) in calls.items():
             got = kernel()
             ref = plain()
@@ -483,13 +578,14 @@ def phase_train_kernels(shapes):
                 raise AssertionError(f"wgrad not bitwise repeatable at {cin}->{cout}, V={v}")
             row[kind] = dict(max_abs_err=err, max_ref=scale,
                              ms=cuda_ms(kernel, TIMED_LAUNCHES),
+                             device_ms=device_ms(kernel, TIMED_LAUNCHES, KERNEL_NAMES[kind]),
                              plain_ms=cuda_ms(plain, TIMED_LAUNCHES))
         rows.append(row)
         print(f"[train kernel] {sh['net']:<8} level {sh['level']} {cin:>3}->{cout:<3} B={b} V={v:<6} "
               f"pairs={pairs:<8} bound {bound_ms:.4f} ms ({bound_by})  " + "  ".join(
-                  f"{k} x{sh['per_step'][k]} {row[k]['ms']:.4f}/{row[k]['plain_ms']:.4f} ms "
-                  f"d {row[k]['max_abs_err']:.1e}/{row[k]['max_ref']:.1e}"
-                  for k in ("fwd", "dgrad", "wgrad")))
+                  f"{k} x{sh['per_step'][k]} {row[k]['ms']:.4f}/{_fmt(row[k]['device_ms'])}/"
+                  f"{row[k]['plain_ms']:.4f} ms d {row[k]['max_abs_err']:.1e}/{row[k]['max_ref']:.1e}"
+                  for k in ("fwd", "dgrad", "wgrad")) + "  (call/device/plain)")
     return rows
 
 
@@ -631,8 +727,9 @@ def _check_same_graph(name, og, oc, fields=("entry_voxel_id", "sem_preds", "prop
 
 
 def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUNS):
-    """One train forward + backward on n clouds: `runs` times on the card, once on the CPU with the same weights, jitter and inputs, and once
-    on the CPU per probe of PROBES.  Returns the worst gradient deviation
+    """One train forward + backward on n clouds: `runs` times on the card,
+    once on the CPU with the same weights, jitter and inputs, and once on
+    the CPU per probe of PROBES.  Returns the worst gradient deviation
     over the card runs (max|d| / scale) and the worst running-statistics
     deviation (max|d| / max|cpu|)."""
     import torch
@@ -742,6 +839,69 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     return worst, worst_stats[0]
 
 
+def kernel_line(rows, entry_rows, launches, train_rows, train_launches):
+    """The {"kernels": [...]} entries: per kernel, its launches in the main
+    path's run (None when it did not run), its times summed over one B = 8
+    train step (forward: with the 53 inference convs beside them), bounds
+    and errors, and its per-shape rows."""
+    flops = sum(r["flops"] * r["per_forward"] for r in rows)
+    nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
+    inference_bound, inference_by = _bound(flops, nbytes)
+    inference = {
+        "launches": launches,
+        "ms": sum(r["ms"] * r["per_forward"] for r in rows),
+        "device_ms": _weighted(rows, "device_ms", "per_forward"),
+        "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in rows),
+        "bound_ms": inference_bound,
+        "bound_by": inference_by,
+        "bound_fp32_ms": _bound(flops, nbytes, PEAK_FP32_FLOPS)[0],
+        "max_abs_err": max(r["max_abs_err"] for r in rows + entry_rows),
+        "work": "the 53 backbone convs of one bench-cloud forward (B = 1)",
+        "shapes": [
+            {k: r[k] for k in ("level", "cin", "cout", "V", "pairs", "per_forward",
+                               "ms", "device_ms", "plain_ms", "bound_ms", "bound_fp32_ms")}
+            for r in rows
+        ],
+    }
+    sources = {"fwd": ("subm_conv", "gapartnet_tpu_torch/csrc/subm_conv.cu",
+                       "gapartnet_tpu/ops/pallas_conv.py:32"),
+               "dgrad": ("subm_conv_dgrad", "gapartnet_tpu_torch/csrc/subm_conv.cu",
+                         "gapartnet_tpu/ops/pallas_conv.py:95"),
+               "wgrad": ("subm_conv_wgrad", "gapartnet_tpu_torch/csrc/subm_conv_wgrad.cu",
+                         "gapartnet_tpu/ops/pallas_conv.py:105")}
+    kernels = []
+    for kind, (kname, source, replaces) in sources.items():
+        kflops = sum(r["flops"] * r["per_step"][kind] for r in train_rows)
+        kbytes = sum(r["bytes"] * r["per_step"][kind] for r in train_rows)
+        bound, by = _bound(kflops, kbytes)
+        entry_ = {
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_launches[kind],
+            "max_abs_err": max(r[kind]["max_abs_err"] for r in train_rows),
+            "ms": sum(r[kind]["ms"] * r["per_step"][kind] for r in train_rows),
+            "device_ms": _weighted([dict(r[kind], per=r["per_step"][kind]) for r in train_rows],
+                                   "device_ms", "per"),
+            "plain_ms": sum(r[kind]["plain_ms"] * r["per_step"][kind] for r in train_rows),
+            "bound_ms": bound, "bound_by": by,
+            "bound_fp32_ms": _bound(kflops, kbytes, PEAK_FP32_FLOPS)[0], "library_ms": None,
+            "per_step": LAUNCHES_PER_STEP[kind],
+            "work": f"the {LAUNCHES_PER_STEP[kind]} {kind} launches of one B = {TRAIN_BATCH} "
+                    f"train step ({TIMED_STEPS} steps counted)",
+            "shapes": [
+                {"net": r["net"], "level": r["level"], "cin": r["cin"], "cout": r["cout"],
+                 "B": r["B"], "V": r["V"], "pairs": r["pairs"], "per_step": r["per_step"][kind],
+                 "ms": r[kind]["ms"], "device_ms": r[kind]["device_ms"],
+                 "plain_ms": r[kind]["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_fp32_ms": r["bound_fp32_ms"]}
+                for r in train_rows if r["per_step"][kind]
+            ],
+        }
+        if kind == "fwd":
+            entry_["inference"] = inference
+        kernels.append(entry_)
+    return kernels
+
+
 def main():
     import argparse
 
@@ -751,11 +911,19 @@ def main():
     parser.add_argument("--card-runs", type=int, default=CARD_RUNS,
                         help="card steps held against the CPU step in phase 6 "
                              f"(default {CARD_RUNS})")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run phases 1 and 2 and the kernel half of phase 5 only, then "
+                             "print the kernel line (launches null) and the nvidia-smi line; "
+                             "for comparing kernel versions in one call")
+    parser.add_argument("--port-root", type=Path, default=ROOT,
+                        help="the checkout whose gapartnet_tpu_torch is measured (default: "
+                             "this script's); with another, the SASS design check only prints")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
-    sys.path.insert(0, str(ROOT))
+    own = args.port_root.resolve() == ROOT
+    sys.path.insert(0, str(args.port_root.resolve()))
     try:
         from gapartnet_tpu_torch.config import GAPartNetConfig
         from gapartnet_tpu_torch.entry import bench_cloud_setup, train_setup, use_fp32_math
@@ -774,11 +942,19 @@ def main():
           f"python {sys.version.split()[0]}, nvcc: {nvcc_version(sc.find_nvcc())}")
     t0 = time.perf_counter()
     libs = sc.build()
-    print(f"[build] {', '.join(p.name for p in libs.values())} in "
+    print(f"[build] {sc.__file__}: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for line in sc.build_log().splitlines():
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print(f"[build] {line.strip()}")
+    for lib in libs.values():
+        for kname, ops in sass_counts(lib).items():
+            print(f"[build] sass {lib.name.split('-')[0]} {kname}: " +
+                  ", ".join(f"{op} {n}" for op, n in ops.items()))
+            if own and kname.startswith(("subm_conv_fwd_kernel", "subm_conv_wgrad_kernel")) and not (
+                    ops["HMMA"] + ops["HGMMA"] and ops["LDGSTS"] + ops["UBLKCP"]):
+                raise AssertionError(f"{kname} uses no tensor-core or no asynchronous-copy "
+                                     f"instruction: {ops}")
     use_fp32_math()
 
     # phase 2: kernel vs plain on every backbone shape of the real hierarchy
@@ -792,14 +968,15 @@ def main():
     print(f"[setup] voxels per level {[int(lv.num_voxels[0]) for lv in hierarchy.levels]}")
     rows = phase_kernels(cfg, hierarchy, "cuda")
 
-    # phase 3: the flagship forward on the card
-    model, out, launches, times = phase_forward(cfg, batch, cluster_sem, cluster_off, smi)
-    phase_profile(lambda: run_forward(model, batch, cluster_sem, cluster_off),
-                  statistics.median(times))
-    entry_rows = phase_entry()
+    if not args.kernels_only:
+        # phase 3: the flagship forward on the card
+        model, out, launches, times = phase_forward(cfg, batch, cluster_sem, cluster_off, smi)
+        phase_profile(lambda: run_forward(model, batch, cluster_sem, cluster_off),
+                      statistics.median(times))
+        entry_rows = phase_entry()
 
-    # phase 4: the same forward on the CPU
-    phase_compare(cfg, batch, cluster_sem, cluster_off, model, out)
+        # phase 4: the same forward on the CPU
+        phase_compare(cfg, batch, cluster_sem, cluster_off, model, out)
 
     # phase 5: training, the second slice's main path, on B = 8 rotated clouds
     tcfg, tbatch, tsem, toff = train_setup(GAPartNetConfig(), batch_size=TRAIN_BATCH, device="cuda")
@@ -811,6 +988,11 @@ def main():
           f"{[int(lv.num_voxels.max()) for lv in thier.levels]}")
     shapes = train_conv_shapes(tcfg, thier, proposal_geometry(tcfg, tbatch, tsem, toff))
     train_rows = phase_train_kernels(shapes)
+    if args.kernels_only:
+        print(json.dumps({"kernels": kernel_line(rows, [], None, train_rows,
+                                                 dict.fromkeys(LAUNCHES_PER_STEP))}))
+        print(smi)
+        return
     step, train_launches, step_times = phase_train(tcfg, tbatch, tsem, toff, smi)
     phase_profile(step, statistics.median(step_times), tag="train profile",
                   what=f"one train step (B={TRAIN_BATCH})")
@@ -819,54 +1001,8 @@ def main():
     phase_train_compare(tcfg, tbatch, tsem, toff, runs=args.card_runs)
 
     # phase 7: the kernel line, then the device line
-    flops = sum(r["flops"] * r["per_forward"] for r in rows)
-    nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
-    inference_bound, inference_by = _bound(flops, nbytes)
-    inference = {
-        "launches": launches,
-        "ms": sum(r["ms"] * r["per_forward"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in rows),
-        "bound_ms": inference_bound,
-        "bound_by": inference_by,
-        "max_abs_err": max(r["max_abs_err"] for r in rows + entry_rows),
-        "work": "the 53 backbone convs of one bench-cloud forward (B = 1)",
-        "shapes": [
-            {k: r[k] for k in ("level", "cin", "cout", "V", "pairs", "per_forward",
-                               "ms", "plain_ms", "bound_ms")}
-            for r in rows
-        ],
-    }
-    sources = {"fwd": ("subm_conv", "gapartnet_tpu_torch/csrc/subm_conv.cu",
-                       "gapartnet_tpu/ops/pallas_conv.py:32"),
-               "dgrad": ("subm_conv_dgrad", "gapartnet_tpu_torch/csrc/subm_conv.cu",
-                         "gapartnet_tpu/ops/pallas_conv.py:95"),
-               "wgrad": ("subm_conv_wgrad", "gapartnet_tpu_torch/csrc/subm_conv_wgrad.cu",
-                         "gapartnet_tpu/ops/pallas_conv.py:105")}
-    kernels = []
-    for kind, (kname, source, replaces) in sources.items():
-        bound, by = _bound(sum(r["flops"] * r["per_step"][kind] for r in train_rows),
-                           sum(r["bytes"] * r["per_step"][kind] for r in train_rows))
-        entry_ = {
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[kind],
-            "max_abs_err": max(r[kind]["max_abs_err"] for r in train_rows),
-            "ms": sum(r[kind]["ms"] * r["per_step"][kind] for r in train_rows),
-            "plain_ms": sum(r[kind]["plain_ms"] * r["per_step"][kind] for r in train_rows),
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "per_step": LAUNCHES_PER_STEP[kind],
-            "work": f"the {LAUNCHES_PER_STEP[kind]} {kind} launches of one B = {TRAIN_BATCH} "
-                    f"train step ({TIMED_STEPS} steps counted)",
-            "shapes": [
-                {"net": r["net"], "level": r["level"], "cin": r["cin"], "cout": r["cout"],
-                 "B": r["B"], "V": r["V"], "pairs": r["pairs"], "per_step": r["per_step"][kind],
-                 "ms": r[kind]["ms"], "plain_ms": r[kind]["plain_ms"], "bound_ms": r["bound_ms"]}
-                for r in train_rows if r["per_step"][kind]
-            ],
-        }
-        if kind == "fwd":
-            entry_["inference"] = inference
-        kernels.append(entry_)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
+                                             train_launches)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -18,8 +18,17 @@ Three wrappers launch the kernels, each counted in `LAUNCHES`
 (`subm_conv.launches` is the same dict):
 
   * `subm_conv_forward` -> csrc/subm_conv.cu ("fwd");
-  * `subm_conv_dgrad`   -> csrc/subm_conv.cu on g with flip(W, 0)^T ("dgrad");
+  * `subm_conv_dgrad`   -> csrc/subm_conv.cu on g, reading W tap-reversed
+                           and transposed in place ("dgrad");
   * `subm_conv_wgrad`   -> csrc/subm_conv_wgrad.cu ("wgrad").
+
+What bounds them on an H100: a gather-GEMM over the neighbour pairs that
+exist, bytes at the level-0 shapes (the 27 x V neighbour table and the
+gathered rows), operations deeper.  Both kernels run on the tensor cores
+(mma.sync m16n8k8, 3xTF32 split for fp32 accuracy) and gather rows with
+cp.async into a ring of shared-memory buffers ahead of the math; the
+sources' head notes give the tiles.  Every sum runs in a fixed order with
+no atomics, so a repeat is bitwise equal.
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor each
 computes its plain version (`subm_conv_reference`,
@@ -29,8 +38,12 @@ nothing.  `subm_conv` is the autograd-aware entry: it saves only
 
 The kernels are compiled at first use with nvcc for sm_90a into
 `gapartnet_tpu_torch/_build/` (one library per source, keyed by a hash of
-source and flags, the sources compiled in parallel) and bound through ctypes
-to plain `extern "C"` launchers.
+source, shared header `csrc/mma_tf32.cuh` and flags, the sources compiled
+in parallel) and bound through ctypes to plain `extern "C"` launchers.
+They launch on the current CUDA device and PyTorch's current stream.  The
+tap splits and row chunks of a shape (which need the card's SM count) are
+computed once per (device, shape) and cached, so a launch costs one ctypes
+call and the output's allocation.
 """
 
 import ctypes
@@ -74,7 +87,10 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from `source`, keyed by a hash of it, of the shared
+    headers it includes and of the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -134,17 +150,19 @@ def _library() -> ctypes.CDLL:
 def _wgrad_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()["subm_conv_wgrad"]))
     fn = lib.gapartnet_subm_conv_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.gapartnet_subm_conv_wgrad_chunks.argtypes = [ctypes.c_int] * 5
     lib.gapartnet_subm_conv_wgrad_chunks.restype = ctypes.c_int
     return lib
 
 
-def _check(features: torch.Tensor, nbr: torch.Tensor, weights=None, grad=None) -> None:
+def _check(features: torch.Tensor, nbr: torch.Tensor, weights=None, grad=None,
+           transposed=False) -> None:
     """features (B, V, Cin) f32 and nbr (B, 27, V) int32, with weights
-    (27, Cin, Cout) f32 or an output gradient (B, V, Cout) f32: types,
-    shapes, one device, contiguous."""
+    (27, Cin, Cout) f32 ((27, Cout, Cin) if `transposed`, the dgrad's) or an
+    output gradient (B, V, Cout) f32: types, shapes, one device,
+    contiguous."""
     others = [t for t in (weights, grad) if t is not None]
     if any(t.dtype != torch.float32 for t in [features, *others]):
         raise TypeError(
@@ -161,7 +179,8 @@ def _check(features: torch.Tensor, nbr: torch.Tensor, weights=None, grad=None) -
         )
     b, v, cin = features.shape
     if (tuple(nbr.shape) != (b, K_TAPS, v)
-            or (weights is not None and tuple(weights.shape[:2]) != (K_TAPS, cin))
+            or (weights is not None and (weights.shape[0], weights.shape[2 if transposed else 1])
+                != (K_TAPS, cin))
             or (grad is not None and tuple(grad.shape[:2]) != (b, v))):
         raise ValueError(f"subm_conv shape mismatch: {shapes}")
     if any(t.device != features.device for t in (nbr, *others)):
@@ -224,16 +243,44 @@ def subm_conv_wgrad_reference(
     return torch.einsum("bvk,bvd->kd", gathered, grad).reshape(K_TAPS, cin, cout)
 
 
-def _launch_forward(features, nbr, weights, counter: str) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(device: int, b: int, v: int, cout: int) -> int:
+    """Tap splits of the forward kernel for this shape (1 = no scratch)."""
+    return _library().gapartnet_subm_conv_splits(b, v, cout, _sm_count(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _chunks(device: int, b: int, v: int, cin: int, cout: int) -> int:
+    """Row chunks of the wgrad kernel for this shape (1 = no scratch)."""
+    return _wgrad_library().gapartnet_subm_conv_wgrad_chunks(b, v, cin, cout, _sm_count(device))
+
+
+def _device(t: torch.Tensor, name: str) -> int:
+    """The tensor's CUDA device, which must be the current one: the
+    kernels launch there."""
+    current = torch.cuda.current_device()
+    device = current if t.device.index is None else t.device.index
+    if device != current:
+        raise ValueError(f"{name}: inputs on cuda:{device}, but the current device is "
+                         f"cuda:{current}")
+    return device
+
+
+def _launch_forward(features, nbr, weights, counter: str, flip: bool) -> torch.Tensor:
+    """The forward kernel; with `flip` the dgrad, `weights` being the
+    forward's (27, Cout, Cin), read tap-reversed and transposed."""
     lib = _library()
     b, v, cin = features.shape
-    cout = weights.shape[2]
-    device = features.device.index or 0
+    cout = weights.shape[1] if flip else weights.shape[2]
+    device = _device(features, f"subm_conv {counter}")
     out = torch.empty((b, v, cout), dtype=torch.float32, device=features.device)
     # small grids split their taps over blocks; the partial sums need scratch
-    splits = lib.gapartnet_subm_conv_splits(b, v, cout, device)
-    if splits < 1:
-        raise RuntimeError(f"subm_conv: cannot query CUDA device {device}")
+    splits = _splits(device, b, v, cout)
     partial = (
         torch.empty((splits, b, v, cout), dtype=torch.float32, device=features.device)
         if splits > 1 else None
@@ -242,7 +289,7 @@ def _launch_forward(features, nbr, weights, counter: str) -> torch.Tensor:
     rc = lib.gapartnet_subm_conv_forward(
         features.data_ptr(), nbr.data_ptr(), weights.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        b, v, cin, cout, splits, device, stream,
+        b, v, cin, cout, splits, int(flip), stream,
     )
     if rc != 0:
         msg = lib.gapartnet_cuda_error_string(rc).decode()
@@ -259,19 +306,19 @@ def subm_conv_forward(
     _check(features, nbr, weights)
     if not _on_card(features, "subm_conv"):
         return subm_conv_reference(features, nbr, weights)
-    return _launch_forward(features, nbr, weights, "fwd")
+    return _launch_forward(features, nbr, weights, "fwd", flip=False)
 
 
 def subm_conv_dgrad(
     grad: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
 ) -> torch.Tensor:
-    """d_features (B, V, Cin) from the output gradient (B, V, Cout): the
-    forward kernel on flip(W, 0)^T, counted as "dgrad"."""
-    w_rev = reversed_weights(weights)
-    _check(grad, nbr, weights=w_rev)
+    """d_features (B, V, Cin) from the output gradient (B, V, Cout) and the
+    forward's weights (27, Cin, Cout): the forward kernel on flip(W, 0)^T
+    (read in place), counted as "dgrad"."""
+    _check(grad, nbr, weights=weights, transposed=True)
     if not _on_card(grad, "subm_conv_dgrad"):
-        return subm_conv_reference(grad, nbr, w_rev)
-    return _launch_forward(grad, nbr, w_rev, "dgrad")
+        return subm_conv_dgrad_reference(grad, nbr, weights)
+    return _launch_forward(grad, nbr, weights, "dgrad", flip=True)
 
 
 def subm_conv_wgrad(
@@ -285,11 +332,9 @@ def subm_conv_wgrad(
     if not _on_card(features, "subm_conv_wgrad"):
         return subm_conv_wgrad_reference(features, nbr, grad)
     lib = _wgrad_library()
-    device = features.device.index or 0
+    device = _device(features, "subm_conv wgrad")
     dw = torch.empty((K_TAPS, cin, cout), dtype=torch.float32, device=features.device)
-    chunks = lib.gapartnet_subm_conv_wgrad_chunks(b, v, cin, cout, device)
-    if chunks < 1:
-        raise RuntimeError(f"subm_conv_wgrad: cannot query CUDA device {device}")
+    chunks = _chunks(device, b, v, cin, cout)
     partial = (
         torch.empty((chunks, K_TAPS, cin, cout), dtype=torch.float32, device=features.device)
         if chunks > 1 else None
@@ -298,7 +343,7 @@ def subm_conv_wgrad(
     rc = lib.gapartnet_subm_conv_wgrad(
         features.data_ptr(), nbr.data_ptr(), grad.data_ptr(), dw.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        b, v, cin, cout, chunks, device, stream,
+        b, v, cin, cout, chunks, stream,
     )
     if rc != 0:
         msg = _library().gapartnet_cuda_error_string(rc).decode()

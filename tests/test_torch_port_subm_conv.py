@@ -199,46 +199,127 @@ def test_backward_wrappers_reject_bad_inputs(bad):
             subm_conv_dgrad(g, nbr, torch.zeros(27, 4, 5))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,v", [(6, 16, 1000), (16, 16, 777), (224, 112, 300),
-                                        (32, 224, 130), (192, 96, 64), (5, 7, 33)])
-def test_kernel_matches_reference_on_card(cin, cout, v):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    gen = torch.Generator().manual_seed(cin * 1000 + cout)
+def tf32_rna(a: np.ndarray) -> np.ndarray:
+    """float32 -> float32 rounded to TF32 (10 mantissa bits) as the card's
+    cvt.rna does: to nearest on the low 13 bits, ties away from zero."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    ulp = 2.0 ** -10
+    a = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 1 + 0.75 * ulp, 3.0],
+                 np.float32)
+    np.testing.assert_array_equal(tf32_rna(a), [1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 3.0])
+
+
+def _tf32_split(a: np.ndarray):
+    hi = tf32_rna(a)
+    return hi, tf32_rna(a - hi)
+
+
+def _conv_3xtf32(a: np.ndarray, w: np.ndarray, single: bool = False) -> np.ndarray:
+    """(V, K) @ (K, N) as the kernels compute it: per k-step of 8, the
+    products lo*hi, hi*lo and hi*hi (exact for TF32 operands) added in that
+    order to a float32 accumulator; `single` keeps hi*hi alone."""
+    (ah, al), (wh, wl) = _tf32_split(a), _tf32_split(w)
+    terms = [(ah, wh)] if single else [(al, wh), (ah, wl), (ah, wh)]
+    acc = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in terms:
+            acc += (x[:, k0:k0 + 8].astype(np.float64) @ y[k0:k0 + 8].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("cin", [6, 16, 32, 112, 224])
+def test_3xtf32_conv_matches_float64(cin):
+    """The kernels' numerics, emulated: a 3xTF32 gather-GEMM at K = 27 * Cin
+    stays within 1e-5 of max|ref| of a float64 conv.  Single-pass TF32 is
+    printed for comparison (run with -s), not asserted."""
+    rng = np.random.RandomState(cin)
+    v, cout = 256, 32
+    pad = -(-cin // 8) * 8 - cin              # zero columns up to the mma K add nothing
+    x = rng.randn(v, cin).astype(np.float32)
+    w = (rng.randn(27, cin, cout) / np.sqrt(27 * cin)).astype(np.float32)
+    nbr = np.where(rng.rand(27, v) < 0.45, rng.randint(0, v, (27, v)), -1)
+    a = np.where((nbr >= 0)[..., None], x[np.maximum(nbr, 0)], 0).transpose(1, 0, 2)
+    a = np.pad(a, ((0, 0), (0, 0), (0, pad))).reshape(v, -1).astype(np.float32)
+    wk = np.pad(w, ((0, 0), (0, pad), (0, 0))).reshape(-1, cout)
+    ref = a.astype(np.float64) @ wk.astype(np.float64)
+    scale = np.abs(ref).max()
+    err3 = np.abs(_conv_3xtf32(a, wk) - ref).max() / scale
+    err1 = np.abs(_conv_3xtf32(a, wk, single=True) - ref).max() / scale
+    print(f"K = 27 * {cin}: max|d| / max|ref| 3xTF32 {err3:.2e}, single-pass TF32 {err1:.2e}")
+    assert err3 <= 1e-5
+    np.testing.assert_allclose(_conv_3xtf32(a, wk), subm_conv_reference(
+        torch.from_numpy(x)[None], torch.from_numpy(nbr.astype(np.int32))[None],
+        torch.from_numpy(w))[0].numpy(), rtol=0, atol=1e-5 * scale)
+
+
+def _card_case(cin, cout, v, pattern, seed):
+    """Seeded card inputs: x (2, V, Cin), W (27, Cin, Cout), g (2, V, Cout)
+    and a random neighbour table.  "holes" also empties tap 3 in every row,
+    voxels 128-255 of the second cloud at every tap (a voxel tile with no
+    neighbour) and the first three quarters of the first cloud (row chunks
+    of the wgrad with no present row)."""
+    gen = torch.Generator().manual_seed(seed)
     x = torch.randn((2, v, cin), generator=gen)
     w = torch.randn((27, cin, cout), generator=gen) / (27 * cin) ** 0.5
+    g = torch.randn((2, v, cout), generator=gen)
     nbr = torch.randint(-v // 2, v, (2, 27, v), generator=gen, dtype=torch.int32).clamp(min=-1)
+    if pattern == "holes":
+        nbr[:, 3] = -1
+        nbr[1, :, 128:256] = -1
+        nbr[0, :, : 3 * v // 4] = -1
     dev = torch.device("cuda")
-    want = subm_conv_reference(x.to(dev), nbr.to(dev), w.to(dev))
+    return x.to(dev), w.to(dev), g.to(dev), nbr.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,v,pattern", [
+    (6, 16, 1000, "random"), (16, 16, 777, "random"), (224, 112, 300, "random"),
+    (32, 224, 130, "random"), (192, 96, 64, "random"), (5, 7, 33, "random"),
+    (16, 192, 1, "random"), (16, 16, 2500, "holes"), (224, 7, 300, "holes"),
+    (6, 224, 129, "holes"), (40, 48, 200, "random"),
+])
+def test_kernel_matches_reference_on_card(cin, cout, v, pattern):
+    """Cin 5 and 6 take 4-byte copies and 8-channel chunks; Cin 16 is one
+    16-channel chunk, 224 fourteen, 40 ends in a half-empty one; Cout 7, 48,
+    192 and 224 cover one to four channel tiles; V = 1 and V not a multiple
+    of the 128-voxel tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, w, _, nbr = _card_case(cin, cout, v, pattern, cin * 1000 + cout)
+    want = subm_conv_reference(x, nbr, w)
     before = dict(subm_conv.launches)
     with torch.no_grad():
-        got = subm_conv(x.to(dev), nbr.to(dev), w.to(dev))
+        got = subm_conv(x, nbr, w)
     torch.cuda.synchronize()
     assert subm_conv.launches["fwd"] == before["fwd"] + 1
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     # deterministic: no atomics
     with torch.no_grad():
-        again = subm_conv(x.to(dev), nbr.to(dev), w.to(dev))
+        again = subm_conv(x, nbr, w)
     assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,v", [(6, 16, 1000), (16, 16, 777), (112, 224, 300),
-                                        (16, 32, 130), (96, 192, 64), (5, 7, 33)])
-def test_kernel_gradients_on_card(cin, cout, v):
+@pytest.mark.parametrize("cin,cout,v,pattern", [
+    (6, 16, 1000, "random"), (16, 16, 777, "random"), (112, 224, 300, "random"),
+    (16, 32, 130, "random"), (96, 192, 64, "random"), (5, 7, 33, "random"),
+    (224, 16, 1, "random"), (16, 16, 2500, "holes"), (7, 224, 300, "holes"),
+    (224, 224, 260, "holes"), (40, 48, 700, "holes"),
+])
+def test_kernel_gradients_on_card(cin, cout, v, pattern):
     """dgrad and wgrad kernels against their plain versions, through
-    autograd; the dgrad at swapped shapes reaches Cout > 112 (64-wide
-    tiles) and the split-tap pass; the wgrad is bitwise repeatable.  The
+    autograd; the dgrad at swapped shapes reaches Cout up to 224 (four
+    channel tiles) and the split-tap pass; the wgrad takes 4-byte copies of
+    one operand or both (Cin 5, 6, 7; Cout 7) and every channel tile (Cout
+    48: the 48-wide one); all three kernels are bitwise repeatable.  The
     wgrad sums over B * V rows, so its tolerance is 1e-4 of max|ref|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    gen = torch.Generator().manual_seed(cin * 1000 + cout + 1)
-    dev = torch.device("cuda")
-    x = torch.randn((2, v, cin), generator=gen).to(dev)
-    w = (torch.randn((27, cin, cout), generator=gen) / (27 * cin) ** 0.5).to(dev)
-    g = torch.randn((2, v, cout), generator=gen).to(dev)
-    nbr = torch.randint(-v // 2, v, (2, 27, v), generator=gen, dtype=torch.int32).clamp(min=-1).to(dev)
+    x, w, g, nbr = _card_case(cin, cout, v, pattern, cin * 1000 + cout + 1)
     before = dict(subm_conv.launches)
     tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     subm_conv(tx, nbr, tw).backward(g)
@@ -249,5 +330,6 @@ def test_kernel_gradients_on_card(cin, cout, v):
     want_w = subm_conv_wgrad_reference(x, nbr, g)
     assert float((tx.grad - want_x).abs().max()) <= TOL * float(want_x.abs().max())
     assert float((tw.grad - want_w).abs().max()) <= TOL * float(want_w.abs().max())
-    assert torch.equal(subm_conv_wgrad(x, nbr, g), subm_conv_wgrad(x, nbr, g))
+    assert torch.equal(subm_conv_wgrad(x, nbr, g), tw.grad)
     assert torch.equal(subm_conv_dgrad(g, nbr, w), tx.grad)
+    assert torch.equal(subm_conv_wgrad(x, nbr, g), subm_conv_wgrad(x, nbr, g))
