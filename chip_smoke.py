@@ -47,8 +47,24 @@ source, in parallel), then:
      losses, every parameter's gradient and the updated running statistics
      within stated tolerances, the gradients' allowing for what rounding
      alone does to them on the CPU;
-  7. prints one {"kernels": [...]} JSON line, the nvidia-smi line and, last,
-     the device line {"ok": true, "device": {...}}.
+  7. the inference API at the flagship config with the eval capacities of
+     train/trainer.py:452, seeded random weights, auto_capacity: predict on
+     the bench cloud and predict_with_masks on its ground-truth instances
+     (3 warm-ups, 20 timed requests each), predict_depth on a depth frame
+     rendered from the cloud (1 warm-up, 5 timed requests; FPS timed
+     alone); the kernel against its plain version on the hierarchy each of
+     the three builds; 53 forward launches per request; the time of each
+     request split into forward, selection (NMS), host scatter and RANSAC
+     (CUDA events), with the device time of the selection, RANSAC and FPS
+     alone;
+     every counter printed (zero for the masks); each request again on the
+     CPU with the same weights and RANSAC samples: integers (sem_preds,
+     instances, kept proposals, classes, FPS indices, inlier masks, ok
+     flags, counters) exactly, NPCS and scores within 1e-4 and boxes within
+     1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
+  8. prints the wall time of each phase, one {"kernels": [...]} JSON line,
+     the nvidia-smi line and, last, the device line {"ok": true, "device":
+     {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -127,6 +143,25 @@ STATS_RTOL = 1e-4
 FORWARD_RTOL = 1e-4
 # dense proposal cells may move by one cell on at most this share of entries
 CELL_FLIP_SHARE = 1e-3
+# the inference API (phase 7): requests per phase, the stages of a request
+PREDICT_WARMUPS = 3
+PREDICT_REQUESTS = 20
+DEPTH_WARMUPS = 1
+DEPTH_REQUESTS = 5
+STAGES = ("forward", "select", "scatter", "ransac")
+# the depth frame: the bench cloud DEPTH_OFFSET in front of a 640 x 480
+# pinhole camera, each point splatted over a 7 x 7 square: about 90000 valid
+# pixels, so predict_depth pre-crops to 80000 points and FPS runs 19999
+# steps over them
+DEPTH_HW = (480, 640)
+DEPTH_K = ((700.0, 0.0, 320.0), (0.0, 700.0, 240.0), (0.0, 0.0, 1.0))
+DEPTH_OFFSET = 3.0
+DEPTH_SPLAT = 3
+# card vs CPU requests: NPCS and scores as the forward's floats; the ok
+# boxes, scales, rotations and translations within 1e-3 of scale (a refit
+# sums up to thousands of rows and takes a 3x3 SVD, cuSOLVER against LAPACK)
+NPCS_RTOL = FORWARD_RTOL
+BOX_RTOL = 1e-3
 
 
 def smi_line() -> str:
@@ -392,7 +427,7 @@ def phase_profile(run, request_ms, tag="profile", what="one forward"):
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:90]}")
 
 
-def _check_close(name, got, want, mask=None):
+def _check_close(name, got, want, mask=None, rtol=FORWARD_RTOL):
     got, want = got.cpu(), want.cpu()
     if mask is not None:
         got, want = got[mask], want[mask]
@@ -402,8 +437,8 @@ def _check_close(name, got, want, mask=None):
     err = float((got - want).abs().max())
     scale = max(float(want.abs().max()), 1e-30)
     print(f"[compare] {name}: max|d| {err:.3e}, max|cpu| {scale:.3e}, n={got.numel()}")
-    if not err <= FORWARD_RTOL * scale:
-        raise AssertionError(f"{name}: card vs CPU max|d| {err} > {FORWARD_RTOL} * {scale}")
+    if not err <= rtol * scale:
+        raise AssertionError(f"{name}: card vs CPU max|d| {err} > {rtol} * {scale}")
 
 
 def _check_equal(name, got, want):
@@ -839,11 +874,395 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     return worst, worst_stats[0]
 
 
-def kernel_line(rows, entry_rows, launches, train_rows, train_launches):
+def inference_pair(cfg):
+    """GAPartNetInference on the card and on the CPU with the same seed-0
+    weights (checked equal) and auto_capacity, as a user would build it."""
+    from gapartnet_tpu_torch.infer.api import GAPartNetInference
+
+    card = GAPartNetInference(cfg, seed=0, auto_capacity=True, device="cuda")
+    cpu = GAPartNetInference(cfg, seed=0, auto_capacity=True, device="cpu")
+    for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):
+        _check_equal(f"weight {k}", a, b)
+    return card, cpu
+
+
+def phase_api_kernels(tag, infer, pts):
+    """The kernel against its plain version at every backbone shape of the
+    hierarchy that a request of `infer` builds for `pts` (its fitted
+    capacities and extent, built as the forward builds it).  Returns the
+    largest max|d|."""
+    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+
+    cfg = infer.cfg
+    batch = infer._wrap_points(pts)
+    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg)
+    hierarchy = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
+    print(f"[{tag} kernel] capacities {cfg.input_capacities()}, extent {cfg.input_grid_extent}, "
+          f"voxels per level {[int(lv.num_voxels[0]) for lv in hierarchy.levels]}")
+    rows = phase_kernels(cfg, hierarchy, "cuda", tag=f"{tag} kernel", timed=False)
+    return max(r["max_abs_err"] for r in rows)
+
+
+def bench_points():
+    """(points (N, 6), instance labels) of assets/bench_cloud.npz."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.entry import BENCH_CLOUD
+
+    d = np.load(BENCH_CLOUD)
+    return np.concatenate([d["xyz"], d["rgb"]], axis=1).astype(np.float32), d["instance_labels"]
+
+
+def timed_request(infer, pts, proposals=None):
+    """One request through GAPartNetInference's stages on the card (the
+    stages of predict; with `proposals`, of predict_with_masks), a CUDA event
+    after each.  Returns (Request, {stage: ms between events})."""
+    import torch
+
+    events = {}
+
+    def mark(stage):
+        events[stage] = torch.cuda.Event(enable_timing=True)
+        events[stage].record()
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    req = infer._request(pts, proposals, mark=mark)
+    torch.cuda.synchronize()
+    split, prev = {}, start
+    for stage in STAGES:
+        split[stage] = prev.elapsed_time(events[stage])
+        prev = events[stage]
+    return req, split
+
+
+def busy_ms(fn):
+    """(kernel time in ms, kernel launches) of one `fn()` on the card
+    (torch.profiler, CUDA activity); (None, 0) if it saw no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in events)
+    return (us / 1e3 if us > 0 else None), sum(e.count for e in events)
+
+
+def _quantiles(times):
+    deciles = statistics.quantiles(times, n=10)
+    return dict(median=statistics.median(times), p10=deciles[0], p90=deciles[-1])
+
+
+def run_requests(tag, call, requests, warmups, smi):
+    """`call()` warmups times, then `requests` timed calls (host clock,
+    ending in a synchronize) with the subm-conv counts set to 0 just before
+    and read just after; checks 53 forward launches per request.  Returns
+    (ms per request, launches)."""
+    import torch
+
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+
+    for _ in range(warmups):
+        call()
+    torch.cuda.synchronize()
+    reset_launches()
+    times = []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(LAUNCHES)
+    if launches != {"fwd": CONVS_PER_FORWARD * requests, "dgrad": 0, "wgrad": 0}:
+        raise AssertionError(f"{tag}: subm_conv launched {launches} in {requests} requests, "
+                             f"expected {CONVS_PER_FORWARD} forward launches per request")
+    q = _quantiles(times)
+    print(f"[{tag}] ms per request over {requests} requests ({warmups} warm-ups): median "
+          f"{q['median']:.3f}, p10 {q['p10']:.3f}, p90 {q['p90']:.3f}, min {min(times):.3f}, "
+          f"max {max(times):.3f}; subm_conv launches {launches['fwd']} "
+          f"({launches['fwd'] // requests} per request)  ({smi})")
+    return times, launches["fwd"]
+
+
+def report_split(tag, infer, pts, proposals=None, requests=PREDICT_REQUESTS):
+    """The stage split over `requests` requests, and the device time of
+    the selection and RANSAC stages alone (profiler).  Returns (the last
+    Request, {stage: median ms}, {stage: device ms})."""
+    splits, req = [], None
+    for _ in range(requests):
+        req, split = timed_request(infer, pts, proposals)
+        splits.append(split)
+    med = {s: statistics.median(sp[s] for sp in splits) for s in STAGES}
+    device = {}
+    if proposals is None:
+        device["select"] = busy_ms(lambda: infer._select(req.out))
+    if req.jobs is not None:
+        device["ransac"] = busy_ms(lambda: infer._fit(req.jobs, 100, 0))
+    counters = {k: int(v.sum()) for k, v in req.out.counters.items()}
+    print(f"[{tag}] split, median over {requests} requests (CUDA events; ms): " + ", ".join(
+        f"{s} {med[s]:.3f}" for s in STAGES) + f"; total {sum(med.values()):.3f}")
+    print(f"[{tag}] device time alone (profiler): " + ", ".join(
+        f"{s} {_fmt(ms)} ms in {n} kernels" for s, (ms, n) in device.items()))
+    jobs = "none" if req.jobs is None else f"{req.jobs.mask.shape[0]} (width {req.jobs.mask.shape[1]})"
+    print(f"[{tag}] proposals {int(req.out.proposals.num_proposals[0])}, kept {int(req.keep.sum())}, "
+          f"box jobs {jobs}, ok boxes {int(req.ok.sum())}, part points "
+          f"{int((req.result.ins_preds > 0).sum())}; counters {counters}")
+    return req, med, {s: v[0] for s, v in device.items()}
+
+
+def _near_ties(name, got, want_logits):
+    """sem_preds may differ only where the CPU's two largest logits are
+    within the forward's tolerance of each other."""
+    want = want_logits.argmax(dim=-1)
+    flip = got != want
+    if flip.any():
+        top2 = want_logits[flip].topk(2, dim=-1).values
+        tol = FORWARD_RTOL * float(want_logits.abs().max())
+        if not bool(((top2[:, 0] - top2[:, 1]) <= 2 * tol).all()):
+            raise AssertionError(f"{name}: sem_preds differ at a point that is not a near-tie")
+    return int(flip.sum())
+
+
+def _cpu_post(cpu, pts, out, keep_given):
+    """The stages after the forward on the CPU, from given forward outputs
+    (the card's, copied to the CPU)."""
+    keep = cpu._select(out) if keep_given is None else keep_given
+    result, jobs = cpu._scatter(pts, out, keep, 10)
+    fits = cpu._fit(jobs, 100, 0) if jobs is not None else None
+    return keep, result, jobs, fits
+
+
+def _out_to_cpu(out):
+    from gapartnet_tpu_torch.models.grouping import SampleProposals
+
+    return dataclasses.replace(
+        out, proposals=SampleProposals(*[t.cpu() for t in out.proposals]),
+        sem_preds=out.sem_preds.cpu(), score_preds=out.score_preds.cpu(),
+        npcs_preds=out.npcs_preds.cpu())
+
+
+def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
+    """The same request on the CPU (same weights, same CPU-drawn RANSAC
+    samples): exact sem_preds, counters, proposals, kept proposal ids,
+    ins_preds, classes, box jobs, inlier masks, ok flags; NPCS and scores
+    within NPCS_RTOL of scale; boxes, scales, rotations and translations of
+    the ok fits within BOX_RTOL of scale.  If sem_preds differ (allowed only
+    at near-ties of the top two logits, which then change the clustering),
+    the stages after the forward run on the CPU from the card's forward
+    outputs and are held to the same rules, and an independent CPU forward
+    on the card's proposals holds the card's scores and NPCS (except where a
+    flipped point picks the class) and counters."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    c = cpu._request(pts, proposals_cpu)
+    print(f"[{tag} compare] CPU request {time.perf_counter() - t0:.1f} s")
+    g = card_req
+    flips = _near_ties(tag, g.out.sem_preds.cpu(), c.out.sem_logits)
+    print(f"[{tag} compare] sem_preds differing: {flips} of {c.out.sem_preds.numel()}")
+    if flips:
+        from gapartnet_tpu_torch.models.grouping import SampleProposals
+
+        prop = SampleProposals(*[t.cpu() for t in g.out.proposals])
+        ref = cpu._forward(pts, prop)
+        for k, v in ref.counters.items():
+            _check_equal(f"{tag}: counter {k} (CPU forward on the card's proposals)",
+                         g.out.counters[k], v)
+        flip = (g.out.sem_preds.cpu() != ref.sem_preds)[0]
+        same_class = prop.proposal_mask[0] & (g.out.proposal_sem.cpu() == ref.proposal_sem)[0]
+        same_entry = prop.entry_mask[0] & ~flip[prop.entry_point[0].long()]
+        _check_close(f"{tag}: score_preds (CPU forward on the card's proposals)",
+                     g.out.score_preds[0], ref.score_preds[0], mask=same_class, rtol=NPCS_RTOL)
+        _check_close(f"{tag}: npcs_preds (CPU forward on the card's proposals)",
+                     g.out.npcs_preds[0], ref.npcs_preds[0], mask=same_entry, rtol=NPCS_RTOL)
+        keep_given = None if proposals_cpu is None else proposals_cpu.proposal_mask[0]
+        out = _out_to_cpu(g.out)
+        keep, result, jobs, fits = _cpu_post(cpu, pts, out, keep_given)
+        c = c._replace(out=out, keep=keep, result=result, jobs=jobs, fits=fits)
+        print(f"[{tag} compare] the stages after the forward compared from the card's forward "
+              "outputs")
+    else:
+        for k, v in c.out.counters.items():
+            _check_equal(f"{tag}: counter {k}", g.out.counters[k], v)
+        for f in c.out.proposals._fields:
+            _check_equal(f"{tag}: proposals.{f}", getattr(g.out.proposals, f),
+                         getattr(c.out.proposals, f))
+    _check_equal(f"{tag}: kept proposals", g.keep, c.keep)
+    gr, cr = g.result, c.result
+    for f in ("sem_preds", "ins_preds", "proposal_classes"):
+        _check_equal(f"{tag}: {f}", torch.from_numpy(np.asarray(getattr(gr, f))),
+                     torch.from_numpy(np.asarray(getattr(cr, f))))
+    for f in ("npcs_map", "proposal_scores"):
+        _check_close(f"{tag}: {f}", torch.from_numpy(getattr(gr, f)), torch.from_numpy(getattr(cr, f)),
+                     rtol=NPCS_RTOL)
+    if (g.jobs is None) != (c.jobs is None):
+        raise AssertionError(f"{tag}: box jobs on one device only")
+    if c.jobs is None:
+        print(f"[{tag} compare] no box jobs")
+        return
+    for f in ("mask", "owner"):
+        _check_equal(f"{tag}: jobs.{f}", torch.from_numpy(getattr(g.jobs, f)),
+                     torch.from_numpy(getattr(c.jobs, f)))
+    _check_equal(f"{tag}: ok flags", g.fits.ok, c.fits.ok)
+    _check_equal(f"{tag}: inlier masks", g.fits.inlier_mask, c.fits.inlier_mask)
+    ok = c.fits.ok.cpu()
+    for f in ("bbox", "scale", "rotation", "translation"):
+        _check_close(f"{tag}: fits.{f} (ok fits)", getattr(g.fits, f).cpu()[ok],
+                     getattr(c.fits, f)[ok], rtol=BOX_RTOL)
+    print(f"[{tag} compare] card and CPU agree: integers exactly, NPCS and scores within "
+          f"{NPCS_RTOL}, {int(ok.sum())} ok boxes within {BOX_RTOL} of scale")
+
+
+def render_depth(xyz, rgb):
+    """A depth frame of the cloud: DEPTH_OFFSET in front of a DEPTH_HW
+    pinhole camera with intrinsics DEPTH_K, each point splatted over a
+    (2 * DEPTH_SPLAT + 1)^2 square, nearest point wins.  Returns (depth
+    (H, W) float32, K (3, 3), BGR image (H, W, 3) uint8)."""
+    import numpy as np
+
+    h, w = DEPTH_HW
+    k = np.asarray(DEPTH_K)
+    z = xyz[:, 2].astype(np.float64) + DEPTH_OFFSET
+    u = np.round(k[0, 0] * xyz[:, 0] / z + k[0, 2]).astype(np.int64)
+    v = np.round(k[1, 1] * xyz[:, 1] / z + k[1, 2]).astype(np.int64)
+    depth = np.full(h * w, np.inf)
+    for dy in range(-DEPTH_SPLAT, DEPTH_SPLAT + 1):
+        for dx in range(-DEPTH_SPLAT, DEPTH_SPLAT + 1):
+            uu, vv = u + dx, v + dy
+            inside = (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+            np.minimum.at(depth, vv[inside] * w + uu[inside], z[inside])
+    hit = np.isfinite(depth)
+    bgr = np.zeros((h * w, 3), np.uint8)
+    order = np.argsort(-z, kind="stable")          # nearer points paint last
+    for dy in range(-DEPTH_SPLAT, DEPTH_SPLAT + 1):
+        for dx in range(-DEPTH_SPLAT, DEPTH_SPLAT + 1):
+            uu, vv = u[order] + dx, v[order] + dy
+            inside = (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+            bgr[vv[inside] * w + uu[inside]] = (rgb[order][inside][:, ::-1] * 255).astype(np.uint8)
+    depth = np.where(hit, depth, 0.0).astype(np.float32).reshape(h, w)
+    return depth, k, bgr.reshape(h, w, 3)
+
+
+def phase_joint_angle(xyz, ins):
+    """estimate_joint_angle on the card, once per branch, on the largest
+    part of the cloud rotated about z around a pivot near it: the
+    tolerances of tests/test_infer.py (the CPD branch on 300 shuffled
+    points)."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.infer.api import estimate_joint_angle
+
+    part = xyz[ins == np.bincount(ins[ins >= 0]).argmax()].astype(np.float64)
+    pivot = part.mean(0) + np.array([0.05, -0.03, 0.0])
+    for method, angle, sub, (tol_angle, tol_axis, tol_pivot) in (
+            ("ransac", 0.7, None, (1e-3, 1e-3, 1e-2)), ("cpd", 0.5, 300, (5e-3, 5e-3, 2e-2))):
+        rng = np.random.RandomState(0)
+        c, s = np.cos(angle), np.sin(angle)
+        rot = np.array([[c, s, 0.0], [-s, c, 0.0], [0.0, 0.0, 1.0]])
+        a = part if sub is None else part[rng.choice(len(part), sub, replace=False)]
+        b = (a - pivot) @ rot + pivot
+        if method == "cpd":
+            b = b[rng.permutation(len(b))]
+        t0 = time.perf_counter()
+        est = estimate_joint_angle(a, b, method=method, device="cuda")
+        ms = (time.perf_counter() - t0) * 1e3
+        errs = (abs(abs(est["angle_rad"]) - angle), float(np.abs(np.abs(est["axis"]) - [0, 0, 1]).max()),
+                float(np.abs(est["pivot"][:2] - pivot[:2]).max()))
+        print(f"[joint] {method}: {len(a)} points, angle error {errs[0]:.2e} (tol {tol_angle}), "
+              f"axis {errs[1]:.2e} ({tol_axis}), pivot xy {errs[2]:.2e} ({tol_pivot}); {ms:.1f} ms")
+        if not (errs[0] <= tol_angle and errs[1] <= tol_axis and errs[2] <= tol_pivot):
+            raise AssertionError(f"estimate_joint_angle ({method}) missed the joint: {errs}")
+
+
+def phase_inference_api(smi):
+    """The fourth slice: predict, predict_with_masks and predict_depth of
+    GAPartNetInference at the flagship config with the eval capacities, on
+    the card, each against the CPU; estimate_joint_angle.  Returns the
+    per-phase numbers for the kernel line."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig, eval_capacity_config
+    from gapartnet_tpu_torch.infer.api import backproject_depth, ball_space_normalize, fps_downsample
+
+    cfg = eval_capacity_config(GAPartNetConfig())
+    pts, ins = bench_points()
+    print(f"[predict] eval capacities: node cap {cfg.hash_node_capacity}, candidate and degree caps "
+          f"{cfg.hash_cand_cap}/{cfg.hash_max_degree}, max_proposals {cfg.max_proposals}, dense pool "
+          f"{cfg.dense_grid_capacity}; auto_capacity")
+    numbers = {}
+
+    # predict on the bench cloud
+    card, cpu = inference_pair(cfg)
+    times, launches = run_requests("predict", lambda: card.predict(pts), PREDICT_REQUESTS,
+                                   PREDICT_WARMUPS, smi)
+    print(f"[predict] capacities {card.cfg.input_capacities()}, extent {card.cfg.input_grid_extent}")
+    err = phase_api_kernels("predict", card, pts)
+    req, split, device = report_split("predict", card, pts)
+    numbers["predict"] = dict(launches=launches, **_quantiles(times), split=split, device=device,
+                              max_abs_err=err)
+    compare_requests("predict", req, cpu, pts)
+
+    # predict_with_masks on the cloud's ground-truth instances
+    masks = np.stack([ins == i for i in range(ins.max() + 1)])
+    card, cpu = inference_pair(cfg)
+    times, launches = run_requests("masks", lambda: card.predict_with_masks(pts, masks),
+                                   PREDICT_REQUESTS, PREDICT_WARMUPS, smi)
+    err = phase_api_kernels("masks", card, pts)
+    req, split, device = report_split("masks", card, pts, card._mask_proposals(masks, len(pts)))
+    counters = {k: int(v.sum()) for k, v in req.out.counters.items()}
+    if any(counters.values()):
+        raise AssertionError(f"masks: capacity counters nonzero: {counters}")
+    numbers["masks"] = dict(launches=launches, **_quantiles(times), split=split, device=device,
+                            max_abs_err=err)
+    compare_requests("masks", req, cpu, pts, cpu._mask_proposals(masks, len(pts)))
+
+    # predict_depth on a depth frame rendered from the cloud
+    depth, k, bgr = render_depth(pts[:, :3], pts[:, 3:])
+    xyz, colors, _ = backproject_depth(depth, k, bgr)
+    print(f"[depth] frame {depth.shape[1]}x{depth.shape[0]}, {len(xyz)} valid pixels")
+    card, cpu = inference_pair(cfg)
+    fps_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        idx = fps_downsample(xyz, cfg.max_points, device="cuda")
+        fps_times.append((time.perf_counter() - t0) * 1e3)
+    fps_dev, fps_kernels = busy_ms(lambda: fps_downsample(xyz, cfg.max_points, device="cuda"))
+    print(f"[depth] FPS {min(len(xyz), 4 * cfg.max_points)} -> {cfg.max_points} points: "
+          f"{statistics.median(fps_times):.3f} ms per call (median of 3, host clock), kernel time "
+          f"{_fmt(fps_dev)} ms in {fps_kernels} kernels  ({smi})")
+    times, launches = run_requests("depth", lambda: card.predict_depth(depth, k, bgr), DEPTH_REQUESTS,
+                                   DEPTH_WARMUPS, smi)
+    pts_d = np.concatenate([ball_space_normalize(xyz[idx])[0], colors[idx]], axis=1)
+    err = phase_api_kernels("depth", card, pts_d)
+    req, split, device = report_split("depth", card, pts_d, requests=DEPTH_REQUESTS)
+    numbers["depth"] = dict(launches=launches, **_quantiles(times), split=split, device=device,
+                            fps_ms=statistics.median(fps_times), fps_device_ms=fps_dev,
+                            max_abs_err=err)
+    t0 = time.perf_counter()
+    idx_cpu = fps_downsample(xyz, cfg.max_points, device="cpu")
+    print(f"[depth compare] CPU FPS {time.perf_counter() - t0:.1f} s")
+    if not np.array_equal(idx, idx_cpu):
+        raise AssertionError(f"FPS indices differ at {int((idx != idx_cpu).sum())} of {len(idx)}")
+    print("[depth compare] FPS indices identical")
+    compare_requests("depth", req, cpu, pts_d)
+
+    phase_joint_angle(pts[:, :3], ins)
+    return numbers
+
+
+def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None):
     """The {"kernels": [...]} entries: per kernel, its launches in the main
     path's run (None when it did not run), its times summed over one B = 8
-    train step (forward: with the 53 inference convs beside them), bounds
-    and errors, and its per-shape rows."""
+    train step (forward: with the 53 inference convs beside them, and the
+    launches and times of the inference API's requests, `api`), bounds and
+    errors, and its per-shape rows."""
     flops = sum(r["flops"] * r["per_forward"] for r in rows)
     nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
     inference_bound, inference_by = _bound(flops, nbytes)
@@ -898,8 +1317,16 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches):
         }
         if kind == "fwd":
             entry_["inference"] = inference
+            entry_["inference_api"] = api
         kernels.append(entry_)
     return kernels
+
+
+def lap(what, since):
+    """Prints the wall time since `since` and returns the time now."""
+    now = time.perf_counter()
+    print(f"[time] {what}: {now - since:.1f} s")
+    return now
 
 
 def main():
@@ -935,6 +1362,7 @@ def main():
         sys.exit(1)
 
     # phase 1: the card, the toolchain, the build
+    start = t = time.perf_counter()
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
     print(f"[device] {smi}")
@@ -956,6 +1384,7 @@ def main():
                 raise AssertionError(f"{kname} uses no tensor-core or no asynchronous-copy "
                                      f"instruction: {ops}")
     use_fp32_math()
+    t = lap("phase 1 (build)", t)
 
     # phase 2: kernel vs plain on every backbone shape of the real hierarchy
     cfg, batch, cluster_sem, cluster_off = bench_cloud_setup(GAPartNetConfig(), device="cuda")
@@ -967,6 +1396,7 @@ def main():
     hierarchy = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
     print(f"[setup] voxels per level {[int(lv.num_voxels[0]) for lv in hierarchy.levels]}")
     rows = phase_kernels(cfg, hierarchy, "cuda")
+    t = lap("phase 2 (kernels vs plain)", t)
 
     if not args.kernels_only:
         # phase 3: the flagship forward on the card
@@ -974,9 +1404,11 @@ def main():
         phase_profile(lambda: run_forward(model, batch, cluster_sem, cluster_off),
                       statistics.median(times))
         entry_rows = phase_entry()
+        t = lap("phase 3 (forward)", t)
 
         # phase 4: the same forward on the CPU
         phase_compare(cfg, batch, cluster_sem, cluster_off, model, out)
+        t = lap("phase 4 (forward vs CPU)", t)
 
     # phase 5: training, the second slice's main path, on B = 8 rotated clouds
     tcfg, tbatch, tsem, toff = train_setup(GAPartNetConfig(), batch_size=TRAIN_BATCH, device="cuda")
@@ -996,13 +1428,20 @@ def main():
     step, train_launches, step_times = phase_train(tcfg, tbatch, tsem, toff, smi)
     phase_profile(step, statistics.median(step_times), tag="train profile",
                   what=f"one train step (B={TRAIN_BATCH})")
+    t = lap("phase 5 (training)", t)
 
     # phase 6: one train step at B = 2, card vs CPU
     phase_train_compare(tcfg, tbatch, tsem, toff, runs=args.card_runs)
+    t = lap("phase 6 (train step vs CPU)", t)
 
-    # phase 7: the kernel line, then the device line
+    # phase 7: the inference API (the fourth slice's main path)
+    api = phase_inference_api(smi)
+    lap("phase 7 (inference API)", t)
+    lap("total", start)
+
+    # phase 8: the kernel line, then the device line
     print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
-                                             train_launches)}))
+                                             train_launches, api)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -104,3 +104,17 @@ class GAPartNetConfig:
         the 2N entries (each valid point appears once per clustering set)."""
         v0 = min(self.proposal_voxel_capacity or self.max_points, 2 * self.max_points)
         return tuple(max(v0 // d, 64) for d in self.proposal_level_divisors)
+
+
+def eval_capacity_config(cfg: GAPartNetConfig) -> GAPartNetConfig:
+    """The capacities of an eval forward (train/trainer.py:452).  An eval
+    clusters on the sem head's predictions, which no label scan bounds (at
+    random weights they mark most points foreground): the hash-CCL node
+    cap at max_points, candidate and degree caps of 64 (the 62-offset probe
+    width, so neither truncates), twice the proposals, and a dense pool of
+    at least the original proposal cap.  (The port clusters by hash-CCL
+    only, so the hash caps always apply.)"""
+    return dataclasses.replace(
+        cfg, hash_node_capacity=cfg.max_points, hash_cand_cap=64, hash_max_degree=64,
+        max_proposals=2 * cfg.max_proposals,
+        dense_grid_capacity=max(cfg.dense_grid_capacity, cfg.max_proposals))

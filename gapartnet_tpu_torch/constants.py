@@ -1,12 +1,46 @@
-"""Part-class symmetry tables (the port's copy of constants.py).
+"""Object taxonomy and part-class symmetry tables (the port's copy of
+constants.py).
 
-Per-class symmetry types (reference gapartnet.yaml:34) and the padded orbit
-table the NPCS loss takes its minimum over.
+The object categories (reference gapartnet/misc/info.py), per-class
+symmetry types (reference gapartnet.yaml:34) and the padded orbit table the
+NPCS loss takes its minimum over.
 """
 
 import math
 
 import numpy as np
+
+OBJECT_NAME2ID = {
+    # seen category
+    "Box": 0,
+    "Remote": 1,
+    "Microwave": 2,
+    "Camera": 3,
+    "Dishwasher": 4,
+    "WashingMachine": 5,
+    "CoffeeMachine": 6,
+    "Toaster": 7,
+    "StorageFurniture": 8,
+    "AKBBucket": 9,
+    "AKBBox": 10,
+    "AKBDrawer": 11,
+    "AKBTrashCan": 12,
+    "Bucket": 13,
+    "Keyboard": 14,
+    "Printer": 15,
+    "Toilet": 16,
+    # unseen category
+    "KitchenPot": 17,
+    "Safe": 18,
+    "Oven": 19,
+    "Phone": 20,
+    "Refrigerator": 21,
+    "Table": 22,
+    "TrashCan": 23,
+    "Door": 24,
+    "Laptop": 25,
+    "Suitcase": 26,
+}
 
 # Per part class (0..9): symmetry type index (reference gapartnet.yaml:34).
 SYMMETRY_INDICES = (0, 1, 3, 3, 2, 0, 3, 2, 4, 1)

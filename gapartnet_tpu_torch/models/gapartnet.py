@@ -140,8 +140,13 @@ class GAPartNet(nn.Module):
         cluster_sem_override: Optional[torch.Tensor] = None,
         cluster_offset_override: Optional[torch.Tensor] = None,
         jitter: Optional[torch.Tensor] = None,
+        proposals_override: Optional[SampleProposals] = None,
     ) -> ModelOutput:
-        """cluster_sem_override / cluster_offset_override drive clustering
+        """proposals_override: externally supplied point groups (batched
+        SampleProposals, e.g. instance masks) that replace clustering;
+        everything downstream is unchanged.
+
+        cluster_sem_override / cluster_offset_override drive clustering
         with supplied labels and offsets instead of the heads' outputs (the
         bench's trained-operating-point load); the heads still run.
 
@@ -217,15 +222,18 @@ class GAPartNet(nn.Module):
             cluster_valid = cluster_valid & (batch.instance_labels >= 0)
         offs = offset_preds.detach() if cluster_offset_override is None else cluster_offset_override
         node_cap = min(cfg.hash_node_capacity, cfg.max_points) if cfg.hash_node_capacity else 0
-        prop = stack_proposals([
-            cluster_single(
-                pt_xyz[i], offs[i], cluster_sem[i], cluster_valid[i],
-                cfg.ball_query_radius, cfg.min_num_points_per_proposal, cfg.max_proposals,
-                hash_node_capacity=node_cap, hash_cand_cap=cfg.hash_cand_cap,
-                hash_max_degree=cfg.hash_max_degree,
-            )
-            for i in range(b)
-        ])
+        if proposals_override is not None:
+            prop = proposals_override
+        else:
+            prop = stack_proposals([
+                cluster_single(
+                    pt_xyz[i], offs[i], cluster_sem[i], cluster_valid[i],
+                    cfg.ball_query_radius, cfg.min_num_points_per_proposal, cfg.max_proposals,
+                    hash_node_capacity=node_cap, hash_cand_cap=cfg.hash_cand_cap,
+                    hash_max_degree=cfg.hash_max_degree,
+                )
+                for i in range(b)
+            ])
         samples = [SampleProposals(*[f[i] for f in prop]) for i in range(b)]
 
         # cube placement: random jitter in training, the cube centre in eval
