@@ -64,7 +64,36 @@ source, in parallel), then:
      1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
   8. prints the wall time of each phase, one {"kernels": [...]} JSON line,
      the nvidia-smi line and, last, the device line {"ok": true, "device":
-     {...}}.
+     {...}}, after phase 9;
+  9. the trainer (the fifth slice's main path), in a temporary directory:
+     a dataset of assets/bench_cloud.npz rotated about z (88 train clouds,
+     3 per eval split, so each eval split ends in a padded batch);
+     configs/gapartnet.yaml read by the port's reader with the overrides
+     of FIT_OVERRIDES (8 clouds per step, widths, points and proposals not
+     cut); `trainer.fit(cfg, device="cuda")` in process: 2 epochs of 11
+     steps and a validation of the three splits after each, checking the
+     forward, dgrad and wgrad launches of every train step at its epoch's
+     flags and 53 forward launches per eval forward, finite losses, the
+     metric names of metrics.jsonl, the top-k checkpoints and `last`; it
+     prints each epoch's epoch_time_s, each step's time, the median and
+     spread of each epoch's steps after its first, the time per split
+     validation and per checkpoint save, and every counter; then it holds
+     the forward, dgrad and wgrad kernels against their plain versions at
+     the fit's shapes (the backbone hierarchy of a fit train batch at the
+     fit's auto_capacity levels, the proposal grid of a train forward with
+     the fitted weights, and the eval model's hierarchy of the val split's
+     padded batch); then a frozen-trunk epoch
+     warm-started from `last` (the frozen parameters and running statistics
+     bitwise unchanged, the score and NPCS parameters moved); then the CLI
+     in two subprocesses, as users run it: `fit --trainer.ckpt_path` of
+     the epoch-0 checkpoint (resumes at epoch 1 with its step counts and
+     jitter generator, logs epoch 1 only) and `test` of `last`; last, one
+     reduced eval step on the val split's batch of 4 (its last cloud
+     padded, with no valid point) at the eval capacities with the fit's
+     weights on the card and on the CPU (conf, keep, rep_cls and counters
+     exactly, scores and IoUs within 1e-4, no proposal kept in the padded
+     cloud; a near-tie sem flip switches to the CPU forward on the card's
+     proposals, as in phase 7).
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -80,6 +109,7 @@ prints the kernel line (launches null) and the nvidia-smi line.
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -162,6 +192,31 @@ DEPTH_SPLAT = 3
 # sums up to thousands of rows and takes a 3x3 SVD, cuSOLVER against LAPACK)
 NPCS_RTOL = FORWARD_RTOL
 BOX_RTOL = 1e-3
+# the trainer (phase 9): the dataset, the overrides of configs/gapartnet.yaml;
+# 11 steps per epoch, so that epoch 1 times 10 steps after its first
+FIT_BATCH = TRAIN_BATCH                            # the reference's 64 over 8 cards
+FIT_TRAIN_CLOUDS = 11 * FIT_BATCH
+FIT_EVAL_CLOUDS = 3
+FIT_VAL_BATCH = 4
+FIT_OVERRIDES = (
+    ("data.init_args.train_batch_size", str(FIT_BATCH)),
+    ("data.init_args.val_batch_size", str(FIT_VAL_BATCH)),
+    ("data.init_args.num_workers", "4"),
+    ("data.init_args.auto_capacity", "True"),
+    ("model.init_args.training_schedule", "[0, 1]"),
+    ("trainer.max_epochs", "2"),
+)
+# launches per train step at the fit's flags: epoch 0 clusters and runs the
+# ScoreNet (53 backbone + 12 ScoreNet convs, the backbone stem without a
+# dgrad), epoch 1 adds the NPCSNet's 12; a frozen-trunk step (all stages)
+# runs no backward through the backbone
+FIT_LAUNCHES_PER_STEP = {False: {"fwd": 65, "dgrad": 64, "wgrad": 65}, True: LAUNCHES_PER_STEP}
+FROZEN_LAUNCHES_PER_STEP = {"fwd": 77, "dgrad": 24, "wgrad": 24}
+EVAL_FORWARD_LAUNCHES = {"fwd": CONVS_PER_FORWARD, "dgrad": 0, "wgrad": 0}
+FREEZE = ("backbone", "sem_seg_head", "offset_mlp0", "offset_bn", "offset_mlp1")
+# card vs CPU reduced eval step: scores and IoUs
+FIT_SCORE_RTOL = 1e-4
+CLI_TIMEOUT_S = 600
 
 
 def smi_line() -> str:
@@ -266,8 +321,9 @@ def backbone_conv_shapes(channels, stem_in=6):
 
 
 def phase_kernels(cfg, hierarchy, device, tag="kernel", timed=True):
-    """Kernel vs plain version on every backbone shape; returns the rows
-    (with CUDA-event times of both when `timed`)."""
+    """Kernel vs plain version on every backbone shape of `hierarchy` (at
+    its batch size); returns the rows (with CUDA-event times of both when
+    `timed`)."""
     import torch
 
     from gapartnet_tpu_torch.ops.subm_conv import subm_conv, subm_conv_reference
@@ -276,8 +332,8 @@ def phase_kernels(cfg, hierarchy, device, tag="kernel", timed=True):
     gen = torch.Generator(device=device).manual_seed(1234)
     for li, cin, cout, per_fwd in backbone_conv_shapes(cfg.channels):
         nbr = hierarchy.levels[li].subm_nbr
-        v = nbr.shape[-1]
-        feats = torch.randn((1, v, cin), generator=gen, device=device)
+        b, _, v = nbr.shape
+        feats = torch.randn((b, v, cin), generator=gen, device=device)
         w = torch.randn((27, cin, cout), generator=gen, device=device) / (27 * cin) ** 0.5
         ref = subm_conv_reference(feats, nbr, w)
         out = subm_conv(feats, nbr, w)
@@ -292,14 +348,14 @@ def phase_kernels(cfg, hierarchy, device, tag="kernel", timed=True):
         pairs = int((nbr >= 0).sum())
         if not timed:
             rows.append(dict(level=li, cin=cin, cout=cout, V=v, max_abs_err=err))
-            print(f"[{tag}] level {li} {cin:>3}->{cout:<3} V={v:<6} pairs={pairs:<7} "
+            print(f"[{tag}] level {li} {cin:>3}->{cout:<3} B={b} V={v:<6} pairs={pairs:<7} "
                   f"max|d| {err:.3e} (max|ref| {scale:.3e})")
             continue
         ms = cuda_ms(lambda: subm_conv(feats, nbr, w), TIMED_LAUNCHES)
         dev_ms = device_ms(lambda: subm_conv(feats, nbr, w), TIMED_LAUNCHES, KERNEL_NAMES["fwd"])
         plain_ms = cuda_ms(lambda: subm_conv_reference(feats, nbr, w), TIMED_LAUNCHES)
         flops = 2 * cin * cout * pairs
-        nbytes = 4 * (v * cin + 27 * v + 27 * cin * cout + v * cout)
+        nbytes = 4 * (b * v * cin + 27 * b * v + 27 * cin * cout + b * v * cout)
         bound_ms, _ = _bound(flops, nbytes)
         rows.append(dict(
             level=li, cin=cin, cout=cout, V=v, pairs=pairs, per_forward=per_fwd,
@@ -568,10 +624,10 @@ def train_conv_shapes(cfg, hierarchy, prop_hier):
     return out
 
 
-def phase_train_kernels(shapes):
+def phase_train_kernels(shapes, tag="train kernel", timed=True):
     """Forward, dgrad and wgrad kernels against their plain versions at
-    every training shape; the wgrad twice, bitwise; CUDA-event medians of
-    all six.  Returns the rows."""
+    every training shape; the wgrad twice, bitwise; when `timed`,
+    CUDA-event medians of all six.  Returns the rows."""
     import torch
 
     from gapartnet_tpu_torch.ops import subm_conv as sc
@@ -611,12 +667,19 @@ def phase_train_kernels(shapes):
                     f"V={v}): max|d| {err} > {rtol} * max|ref| {scale}")
             if kind == "wgrad" and not torch.equal(got, kernel()):
                 raise AssertionError(f"wgrad not bitwise repeatable at {cin}->{cout}, V={v}")
-            row[kind] = dict(max_abs_err=err, max_ref=scale,
-                             ms=cuda_ms(kernel, TIMED_LAUNCHES),
-                             device_ms=device_ms(kernel, TIMED_LAUNCHES, KERNEL_NAMES[kind]),
-                             plain_ms=cuda_ms(plain, TIMED_LAUNCHES))
+            row[kind] = dict(max_abs_err=err, max_ref=scale)
+            if timed:
+                row[kind].update(ms=cuda_ms(kernel, TIMED_LAUNCHES),
+                                 device_ms=device_ms(kernel, TIMED_LAUNCHES, KERNEL_NAMES[kind]),
+                                 plain_ms=cuda_ms(plain, TIMED_LAUNCHES))
         rows.append(row)
-        print(f"[train kernel] {sh['net']:<8} level {sh['level']} {cin:>3}->{cout:<3} B={b} V={v:<6} "
+        if not timed:
+            print(f"[{tag}] {sh['net']:<8} level {sh['level']} {cin:>3}->{cout:<3} B={b} V={v:<6} "
+                  f"pairs={pairs:<8} " + "  ".join(
+                      f"{k} max|d| {row[k]['max_abs_err']:.1e} (max|ref| {row[k]['max_ref']:.1e})"
+                      for k in ("fwd", "dgrad", "wgrad")))
+            continue
+        print(f"[{tag}] {sh['net']:<8} level {sh['level']} {cin:>3}->{cout:<3} B={b} V={v:<6} "
               f"pairs={pairs:<8} bound {bound_ms:.4f} ms ({bound_by})  " + "  ".join(
                   f"{k} x{sh['per_step'][k]} {row[k]['ms']:.4f}/{_fmt(row[k]['device_ms'])}/"
                   f"{row[k]['plain_ms']:.4f} ms d {row[k]['max_abs_err']:.1e}/{row[k]['max_ref']:.1e}"
@@ -656,7 +719,7 @@ def phase_train(cfg, batch, cluster_sem, cluster_off, smi):
     from gapartnet_tpu_torch.train.loop import adam, train_step
 
     model = _train_model(cfg)
-    opt = adam(model.parameters(), 1e-3)
+    opt = adam(model.named_parameters(), 1e-3)
     gen = torch.Generator().manual_seed(0)
     stats0 = {k: v.clone() for k, v in model.state_dict().items() if "running_" in k}
 
@@ -1038,15 +1101,6 @@ def _cpu_post(cpu, pts, out, keep_given):
     return keep, result, jobs, fits
 
 
-def _out_to_cpu(out):
-    from gapartnet_tpu_torch.models.grouping import SampleProposals
-
-    return dataclasses.replace(
-        out, proposals=SampleProposals(*[t.cpu() for t in out.proposals]),
-        sem_preds=out.sem_preds.cpu(), score_preds=out.score_preds.cpu(),
-        npcs_preds=out.npcs_preds.cpu())
-
-
 def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
     """The same request on the CPU (same weights, same CPU-drawn RANSAC
     samples): exact sem_preds, counters, proposals, kept proposal ids,
@@ -1068,9 +1122,9 @@ def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
     flips = _near_ties(tag, g.out.sem_preds.cpu(), c.out.sem_logits)
     print(f"[{tag} compare] sem_preds differing: {flips} of {c.out.sem_preds.numel()}")
     if flips:
-        from gapartnet_tpu_torch.models.grouping import SampleProposals
+        from gapartnet_tpu_torch.train.trainer import cpu_tree
 
-        prop = SampleProposals(*[t.cpu() for t in g.out.proposals])
+        prop = cpu_tree(g.out.proposals)
         ref = cpu._forward(pts, prop)
         for k, v in ref.counters.items():
             _check_equal(f"{tag}: counter {k} (CPU forward on the card's proposals)",
@@ -1083,7 +1137,7 @@ def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
         _check_close(f"{tag}: npcs_preds (CPU forward on the card's proposals)",
                      g.out.npcs_preds[0], ref.npcs_preds[0], mask=same_entry, rtol=NPCS_RTOL)
         keep_given = None if proposals_cpu is None else proposals_cpu.proposal_mask[0]
-        out = _out_to_cpu(g.out)
+        out = cpu_tree(g.out)
         keep, result, jobs, fits = _cpu_post(cpu, pts, out, keep_given)
         c = c._replace(out=out, keep=keep, result=result, jobs=jobs, fits=fits)
         print(f"[{tag} compare] the stages after the forward compared from the card's forward "
@@ -1257,12 +1311,432 @@ def phase_inference_api(smi):
     return numbers
 
 
-def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None):
+def write_fit_dataset(root):
+    """The fit's dataset under `root`, in the .npz layout load_cloud_file
+    reads: assets/bench_cloud.npz rotated about z (entry.rotation_z), the
+    train split at FIT_TRAIN_CLOUDS angles 2 pi i / FIT_TRAIN_CLOUDS, each
+    eval split at FIT_EVAL_CLOUDS of the angles half-way between."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.entry import BENCH_CLOUD, rotation_z
+
+    d = np.load(BENCH_CLOUD)
+    step = 2 * np.pi / FIT_TRAIN_CLOUDS
+    angles = {"train": [i * step for i in range(FIT_TRAIN_CLOUDS)]}
+    for si, split in enumerate(("val", "test_intra", "test_inter")):
+        angles[split] = [(si * FIT_EVAL_CLOUDS + j + 0.5) * step for j in range(FIT_EVAL_CLOUDS)]
+    for split, thetas in angles.items():
+        out = root / split / "pth"
+        out.mkdir(parents=True)
+        for i, theta in enumerate(thetas):
+            xyz = (d["xyz"].astype(np.float64) @ rotation_z(theta)).astype(np.float32)
+            np.savez(out / f"bench_{split}_{i:02d}.npz", xyz=xyz, rgb=d["rgb"],
+                     sem_labels=d["sem_labels"], instance_labels=d["instance_labels"],
+                     gt_npcs=d["gt_npcs"])
+
+
+def fit_overrides(data_root, extra=()):
+    return [("data.init_args.root_dir", str(data_root)), *FIT_OVERRIDES, *extra]
+
+
+def fit_config(data_root, run_dir, extra=()):
+    """configs/gapartnet.yaml through the port's reader with the fit's
+    overrides; checkpoints and metrics under `run_dir` (the schema reads no
+    trainer.ckpt_dir / log_file, so they are set here)."""
+    from gapartnet_tpu_torch.train.config import load_config
+
+    cfg = load_config(str(ROOT / "configs" / "gapartnet.yaml"), fit_overrides(data_root, extra))
+    cfg.trainer.ckpt_dir = str(run_dir / "checkpoints")
+    cfg.trainer.log_file = str(run_dir / "metrics.jsonl")
+    return cfg
+
+
+class FitProbe:
+    """Wraps the trainer's train_step, eval_step, evaluate_splits and
+    CkptManager.save for the length of a `with` block: each call is timed
+    between two synchronizes, and the subm-conv counts are read (not reset)
+    around each train step and eval forward."""
+
+    def __init__(self):
+        self.steps, self.evals, self.validations, self.saves = [], [], [], []
+
+    def _wrap(self, fn, records, key=None):
+        import torch
+
+        from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            records.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                                key=key(kw) if key else None))
+            return out
+
+        return wrapper
+
+    def __enter__(self):
+        from gapartnet_tpu_torch.train import trainer
+
+        self._trainer = trainer
+        self._saved = dict(train_step=trainer.train_step, eval_step=trainer.eval_step,
+                           evaluate_splits=trainer.evaluate_splits, save=trainer.CkptManager.save)
+        trainer.train_step = self._wrap(trainer.train_step, self.steps, key=lambda kw: kw["do_npcs"])
+        trainer.eval_step = self._wrap(trainer.eval_step, self.evals)
+        trainer.evaluate_splits = self._wrap(trainer.evaluate_splits, self.validations)
+        trainer.CkptManager.save = self._wrap(trainer.CkptManager.save, self.saves)
+        return self
+
+    def __exit__(self, *exc):
+        t = self._trainer
+        t.train_step, t.eval_step = self._saved["train_step"], self._saved["eval_step"]
+        t.evaluate_splits, t.CkptManager.save = self._saved["evaluate_splits"], self._saved["save"]
+
+
+def _metric_lines(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def check_metric_lines(tag, lines, cfg):
+    """Every value finite; each train line holds exactly the JAX trainer's
+    train names, each eval line a subset of its eval names
+    (trainer.py:574-625) lacking only the recalls of classes absent from a
+    split."""
+    import math
+
+    from gapartnet_tpu_torch.train.trainer import eval_metric_names, train_metric_names
+
+    for line in lines:
+        bad = [k for k, v in line.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite metrics {bad}")
+        keys = set(line) - {"step"}
+        if "epoch" in line:
+            want = set(train_metric_names(True))
+            if keys != want:
+                raise AssertionError(f"{tag}: train line names differ: {sorted(keys ^ want)}")
+        else:
+            do_instance = any(k.startswith("val/AP@50_") for k in keys)
+            want = set(eval_metric_names(cfg, do_instance))
+            if not keys <= want or any("/recall_" not in k for k in want - keys):
+                raise AssertionError(f"{tag}: eval line names differ: {sorted(keys ^ want)}")
+
+
+def _check_launches(tag, records, want_of):
+    for i, r in enumerate(records):
+        want = want_of(r)
+        if r["launches"] != want:
+            raise AssertionError(f"{tag} {i + 1}: subm_conv launched {r['launches']}, expected {want}")
+
+
+def _print_counters(tag, lines):
+    for line in lines:
+        counters = {k: v for k, v in line.items() if "counters/" in k}
+        what = f"epoch {int(line['epoch'])} train (mean per step)" if "epoch" in line else "eval"
+        print(f"[{tag}] {what} counters at step {line['step']}: "
+              + ", ".join(f"{k} {v:g}" for k, v in counters.items()))
+
+
+def run_cli(tag, args, cwd):
+    """`python -m gapartnet_tpu_torch.train.cli <args>` in `cwd`, on the
+    card (no --device), as a user runs it; returns its stdout."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p))
+    cwd.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gapartnet_tpu_torch.train.cli", *args], cwd=cwd,
+                       env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    print(f"[{tag}] python -m gapartnet_tpu_torch.train.cli {args[0]} ...: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if r.returncode != 0:
+        raise AssertionError(f"{tag}: the CLI failed:\n{r.stdout[-3000:]}\n{r.stderr[-5000:]}")
+    return r.stdout
+
+
+def fit_kernels(cfg, model, train_raw, val_raw):
+    """The forward, dgrad and wgrad kernels against their plain versions at
+    the fit's own shapes: the backbone hierarchy of a fit train batch
+    (`train_raw`, at the fit's auto_capacity levels) and the proposal grid
+    of a train forward on it (clustering on the fitted sem head, on a copy
+    of `model` so that its running statistics stay), and the forward at
+    every backbone shape of the eval model's hierarchy of `val_raw` (the
+    val split's padded batch).  Returns the largest max|d| of each
+    kernel."""
+    import torch
+
+    from gapartnet_tpu_torch.config import eval_capacity_config
+    from gapartnet_tpu_torch.entry import make_model
+    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+    from gapartnet_tpu_torch.structures import PointCloudBatch
+    from gapartnet_tpu_torch.train.loop import draw_jitter
+
+    def hierarchy(mcfg, batch):
+        keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, mcfg)
+        return build_hierarchy(keys, nvox, mcfg.input_capacities(), extent=mcfg.input_grid_extent)
+
+    mcfg = cfg.model
+    batch = PointCloudBatch.from_numpy(train_raw, "cuda")
+    probe = make_model(mcfg, "cuda", seed=0)
+    probe.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        out = probe.train()(batch, do_cluster=True, do_score=True, do_npcs=True,
+                            jitter=draw_jitter(torch.Generator().manual_seed(cfg.trainer.seed)))
+    hier, prop = hierarchy(mcfg, batch), out.proposal_grid
+    print(f"[fit kernel] B={batch.batch_size} train batch: voxels per level (max over B) "
+          f"{[int(lv.num_voxels.max()) for lv in hier.levels]} of {mcfg.input_capacities()}; live "
+          f"proposals {out.proposals.num_proposals.tolist()}, proposal voxels "
+          f"{prop.levels[0].num_voxels.tolist()} of {mcfg.proposal_capacities()}")
+    rows = phase_train_kernels(train_conv_shapes(mcfg, hier, prop), tag="fit kernel", timed=False)
+    err = {k: max(r[k]["max_abs_err"] for r in rows) for k in ("fwd", "dgrad", "wgrad")}
+    ecfg = eval_capacity_config(mcfg)
+    ehier = hierarchy(ecfg, PointCloudBatch.from_numpy(val_raw, "cuda"))
+    print(f"[fit eval kernel] B={val_raw['points'].shape[0]} val batch (the last cloud padded): "
+          f"voxels per level {[lv.num_voxels.tolist() for lv in ehier.levels]}")
+    erows = phase_kernels(ecfg, ehier, "cuda", tag="fit eval kernel", timed=False)
+    err["fwd"] = max(err["fwd"], *(r["max_abs_err"] for r in erows))
+    return err
+
+
+def compare_fit_eval(cfg, model, device_batch, cpu_batch):
+    """One reduced eval step (trainer.reduce_eval_outputs of an eval
+    forward) on the card and on the CPU with the same weights, on every
+    cloud of the batch: conf, accuracies, keep, rep_cls and counters
+    exactly, scores and IoUs within FIT_SCORE_RTOL of scale.  On a near-tie
+    sem flip (which changes the clustering) the CPU runs its forward on the
+    card's proposals instead, and the selection on the card's outputs."""
+    import torch
+
+    from gapartnet_tpu_torch.config import eval_capacity_config
+    from gapartnet_tpu_torch.models.gapartnet import GAPartNet
+    from gapartnet_tpu_torch.train.loop import eval_step
+    from gapartnet_tpu_torch.train.trainer import cpu_tree, host_copy, reduce_eval_outputs
+
+    ecfg = eval_capacity_config(cfg.model)
+    card = model.with_config(ecfg)
+    cpu = GAPartNet(ecfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    flags = dict(do_cluster=True, do_score=True, do_npcs=True)
+    out_g = eval_step(card, device_batch, **flags)
+    rg = host_copy(reduce_eval_outputs(out_g, device_batch, ecfg, True))
+    t0 = time.perf_counter()
+    out_c = eval_step(cpu, cpu_batch, **flags)
+    print(f"[fit compare] CPU eval forward {time.perf_counter() - t0:.1f} s")
+    flips = _near_ties("fit compare", out_g.sem_preds.cpu(), out_c.sem_logits)
+    print(f"[fit compare] sem_preds differing: {flips} of {out_c.sem_preds.numel()}")
+    if flips:
+        conf_c = host_copy(reduce_eval_outputs(out_c, cpu_batch, ecfg, False))["conf"]
+        moved = float(abs(rg["conf"] - conf_c).sum())
+        if moved > 2 * flips:
+            raise AssertionError(f"fit compare: conf moved by {moved} for {flips} flipped points")
+        with torch.no_grad():
+            ref = cpu(cpu_batch, **flags, proposals_override=cpu_tree(out_g.proposals))
+        rc = host_copy(reduce_eval_outputs(cpu_tree(out_g), cpu_batch, ecfg, True))
+        for k in [k for k in rg if k.startswith("counters/")]:
+            rc[k] = ref.counters[k.split("/", 1)[1]].sum().to(torch.float32).numpy()
+        same = (out_g.proposal_sem.cpu() == ref.proposal_sem).numpy()
+        rc["scores"], rc["ious"] = ref.score_preds.numpy(), ref.ious.numpy()
+        mask = {"scores": same, "ious": same}
+        print("[fit compare] compared through the CPU forward on the card's proposals")
+    else:
+        rc = host_copy(reduce_eval_outputs(out_c, cpu_batch, ecfg, True))
+        mask = {}
+    for k in rg:
+        if k in ("scores", "ious"):
+            got, want = torch.from_numpy(rg[k]), torch.from_numpy(rc[k])
+            m = mask.get(k)
+            _check_close(f"fit compare: {k}", got, want,
+                         None if m is None else torch.from_numpy(m), rtol=FIT_SCORE_RTOL)
+        elif k in ("all_accu", "pixel_accu", "conf") and flips:
+            continue
+        else:
+            _check_equal(f"fit compare: {k}", torch.as_tensor(rg[k]), torch.as_tensor(rc[k]))
+    pad = ~cpu_batch.point_mask.any(dim=1).numpy()
+    if rg["keep"][pad].any():
+        raise AssertionError(f"fit compare: a padded cloud kept {int(rg['keep'][pad].sum())} "
+                             "proposals")
+    counters = {k: float(v) for k, v in rg.items() if k.startswith("counters/")}
+    print(f"[fit compare] B={len(pad)} ({int(pad.sum())} padded): card and CPU agree on conf, keep "
+          f"({rg['keep'].sum(axis=1).tolist()} kept per cloud), rep_cls, counters {counters} "
+          f"exactly; scores and IoUs within {FIT_SCORE_RTOL}")
+
+
+def phase_fit(smi):
+    """The fifth slice: fit, a frozen-trunk epoch, the CLI's resume and
+    test, and a reduced eval step against the CPU.  Returns the launch
+    counts and times for the kernel line."""
+    import tempfile
+    import zlib
+
+    import torch
+
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.train import trainer
+
+    numbers = {}
+    with tempfile.TemporaryDirectory(prefix="gapartnet_fit_") as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        write_fit_dataset(data)
+        cfg = fit_config(data, tmp / "fit")
+        print(f"[fit] configs/gapartnet.yaml + {dict(FIT_OVERRIDES)}: channels {cfg.model.channels}, "
+              f"block_repeat {cfg.model.block_repeat}, max_points {cfg.model.max_points}, "
+              f"max_proposals {cfg.model.max_proposals}; {FIT_TRAIN_CLOUDS} train clouds, "
+              f"{FIT_EVAL_CLOUDS} per eval split")
+
+        # the fit, in process
+        reset_launches()
+        t0 = time.perf_counter()
+        with FitProbe() as probe:
+            state = trainer.fit(cfg, device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        print(f"[fit] trainer.fit: {fit_s:.1f} s; capacities {cfg.model.input_capacities()}, extent "
+              f"{cfg.model.input_grid_extent}, node cap {cfg.model.hash_node_capacity}, cand cap "
+              f"{cfg.model.hash_cand_cap}, degree {cfg.model.hash_max_degree}")
+        _check_launches("fit step", probe.steps, lambda r: FIT_LAUNCHES_PER_STEP[r["key"]])
+        _check_launches("fit eval forward", probe.evals, lambda r: EVAL_FORWARD_LAUNCHES)
+        want_total = {k: sum(r["launches"][k] for r in probe.steps + probe.evals) for k in launches}
+        n_steps = len(probe.steps)
+        if (n_steps != 2 * (FIT_TRAIN_CLOUDS // FIT_BATCH) or launches != want_total
+                or len(probe.evals) != 2 * 3 * -(-FIT_EVAL_CLOUDS // FIT_VAL_BATCH)):
+            raise AssertionError(f"fit: {n_steps} steps, {len(probe.evals)} eval forwards, launches "
+                                 f"{launches} (the steps and eval forwards account for {want_total})")
+        if not all(launches.values()):
+            raise AssertionError(f"fit: a kernel never launched: {launches}")
+        lines = _metric_lines(tmp / "fit" / "metrics.jsonl")
+        check_metric_lines("fit", lines, cfg)
+        ckpts = sorted(p.name for p in (tmp / "fit" / "checkpoints").iterdir())
+        if len(ckpts) != 3 or ckpts[-1] != "last" or not (
+                ckpts[0].startswith("epoch_000_mean_mAP_") and ckpts[1].startswith("epoch_001_mean_mAP_")):
+            raise AssertionError(f"fit: checkpoints {ckpts}")
+        train_lines = [line for line in lines if "epoch" in line]
+        for line in train_lines:
+            print(f"[fit] epoch {int(line['epoch'])}: epoch_time_s {line['epoch_time_s']:.3f}, "
+                  f"train_loss/total_loss {line['train_loss/total_loss']:.4f}  ({smi})")
+        for i, r in enumerate(probe.steps):
+            print(f"[fit] step {i + 1} (do_npcs {r['key']}): {r['ms']:.3f} ms, launches {r['launches']}")
+        windows = {e: [r["ms"] for r in probe.steps if r["key"] == bool(e)][1:] for e in (0, 1)}
+        for e, times in windows.items():
+            q = _quantiles(times)
+            print(f"[fit] B={FIT_BATCH} ms per train step in epoch {e} after its first step, over "
+                  f"{len(times)} steps: median {q['median']:.3f}, p10 {q['p10']:.3f}, p90 "
+                  f"{q['p90']:.3f}, min {min(times):.3f}, max {max(times):.3f}; "
+                  f"{FIT_BATCH / q['median'] * 1e3:.2f} clouds/s  ({smi})")
+        step_ms = statistics.median(windows[1])
+        split_ms = [r["ms"] / 3 for r in probe.validations]
+        save_ms = [r["ms"] for r in probe.saves]
+        eval_ms = [r["ms"] for r in probe.evals]
+        print(f"[fit] ms per split validation (mean of the 3 splits, {FIT_EVAL_CLOUDS} clouds in "
+              f"batches of {FIT_VAL_BATCH}) {', '.join(f'{m:.3f}' for m in split_ms)}; ms per eval "
+              f"forward {', '.join(f'{m:.3f}' for m in eval_ms)}; ms per checkpoint save "
+              f"{', '.join(f'{m:.3f}' for m in save_ms)}  ({smi})")
+        print(f"[fit] launches {launches} in {n_steps} steps and {len(probe.evals)} eval forwards; "
+              f"checkpoints {ckpts}")
+        _print_counters("fit", lines)
+        numbers["fit"] = dict(
+            launches=launches, steps=n_steps, eval_forwards=len(probe.evals),
+            per_step={"epoch0": FIT_LAUNCHES_PER_STEP[False], "epoch1": FIT_LAUNCHES_PER_STEP[True]},
+            epoch_time_s=[line["epoch_time_s"] for line in train_lines], step_ms=step_ms,
+            step_ms_window=windows[1],
+            split_ms=split_ms, save_ms=save_ms, eval_forward_ms=eval_ms, seconds=fit_s)
+
+        # the kernels at the fit's shapes, and the val split's padded batch
+        datasets = trainer.build_datasets(cfg, "fit")
+        train_raw = next(trainer._iter_batches(datasets["train"], FIT_BATCH, drop_last=True,
+                                               shuffle_seed=cfg.trainer.seed + 1))
+        *_, val_raw = trainer._iter_batches(datasets["val"], FIT_VAL_BATCH, drop_last=False)
+        numbers["fit"]["max_abs_err"] = fit_kernels(cfg, state.model, train_raw, val_raw)
+
+        # a frozen-trunk epoch warm-started from `last`
+        last = tmp / "fit" / "checkpoints" / "last"
+        fcfg = fit_config(data, tmp / "frozen", extra=(
+            ("model.init_args.training_schedule", "[0, 0]"), ("trainer.max_epochs", "1"),
+            ("model.init_args.ckpt", str(last))))
+        fcfg.trainer.freeze_prefixes = FREEZE
+        reset_launches()
+        with FitProbe() as fprobe:
+            fstate = trainer.fit(fcfg, device="cuda")
+        frozen_launches = dict(LAUNCHES)
+        _check_launches("frozen step", fprobe.steps, lambda r: FROZEN_LAUNCHES_PER_STEP)
+        ref = trainer.CkptManager.restore(str(last))["model"]
+        after = fstate.model.state_dict()
+        params = dict(fstate.model.named_parameters())
+        (fline,) = [line for line in _metric_lines(tmp / "frozen" / "metrics.jsonl") if "epoch" in line]
+        # a branch whose loss was 0 all epoch got no gradient (fresh Adam: no move)
+        trained = sum((branch for branch, loss in (
+            (("score_unet", "score_head"), "loss_prop_score"),
+            (("npcs_unet", "npcs_head"), "loss_prop_npcs")) if fline[f"train_loss/{loss}"] > 0), ())
+        if not trained:
+            raise AssertionError("frozen: no proposal all epoch, so no branch could train")
+        fixed = moved = 0
+        for k, v in ref.items():
+            top = k.split(".", 1)[0]
+            same = torch.equal(after[k], v.to(after[k].device))
+            if top in FREEZE and not same:
+                raise AssertionError(f"frozen: {k} changed")
+            if top in trained and k in params and same:
+                raise AssertionError(f"frozen: {k} did not move")
+            fixed += top in FREEZE
+            moved += top in trained and k in params
+        print(f"[frozen] one epoch with {FREEZE} frozen, warm-started from last: {fixed} frozen "
+              f"tensors (parameters and running statistics) bitwise unchanged on the card; all "
+              f"{moved} parameters of {trained} moved (epoch losses: score "
+              f"{fline['train_loss/loss_prop_score']:.4f}, NPCS "
+              f"{fline['train_loss/loss_prop_npcs']:.4f}); launches {frozen_launches} in "
+              f"{len(fprobe.steps)} steps ({FROZEN_LAUNCHES_PER_STEP} per step) and "
+              f"{len(fprobe.evals)} eval forwards")
+        numbers["frozen"] = dict(launches=frozen_launches, per_step=FROZEN_LAUNCHES_PER_STEP)
+
+        # the CLI: resume from the epoch-0 checkpoint, then test `last`
+        flat = [a for kv in fit_overrides(data) for a in ("--" + kv[0], kv[1])]
+        base = ["-c", str(ROOT / "configs" / "gapartnet.yaml"), *flat]
+        epoch0 = next(p for p in (tmp / "fit" / "checkpoints").iterdir()
+                      if p.name.startswith("epoch_000"))
+        saved = trainer.CkptManager.restore(str(epoch0))
+        crc = zlib.crc32(saved["generator"].numpy().tobytes())
+        out = run_cli("fit resume", ["fit", *base, "--trainer.ckpt_path", str(epoch0)], tmp / "resume")
+        want = (f"at epoch 1 (step {saved['step']}, gstep {saved['gstep']}, jitter generator state "
+                f"crc32 {crc:08x})")
+        if want not in out:
+            raise AssertionError(f"fit resume: no '{want}' in its output:\n{out[-2000:]}")
+        rlines = _metric_lines(tmp / "resume" / "metrics.jsonl")
+        check_metric_lines("fit resume", rlines, cfg)
+        epochs = [int(line["epoch"]) for line in rlines if "epoch" in line]
+        if epochs != [1] or rlines[0]["step"] != saved["gstep"] + n_steps // 2:
+            raise AssertionError(f"fit resume logged epochs {epochs} at step {rlines[0]['step']}")
+        print(f"[fit resume] resumed {want}; logged epoch 1 only, epoch_time_s "
+              f"{rlines[0]['epoch_time_s']:.3f}, step {rlines[0]['step']}")
+        out = run_cli("test", ["test", *base, "--model.init_args.ckpt", str(last),
+                               "--model.init_args.training_schedule", "[0,0]"], tmp / "test")
+        printed = [line for line in out.splitlines() if ": " in line and "/" in line.split(": ")[0]]
+        if not any(line.startswith("monitor_metrics/mean_mAP: ") for line in printed) or not any(
+                "/counters/" in line for line in printed):
+            raise AssertionError(f"test: metrics not printed:\n{out[-2000:]}")
+        for line in printed:
+            if line.startswith("monitor_metrics/") or "/counters/" in line or line.split(": ")[0] in (
+                    "val/AP@50", "val/mAP", "val/miou"):
+                print(f"[test] {line}")
+
+        # card vs CPU: one reduced eval step on the val split's padded batch
+        from gapartnet_tpu_torch.structures import PointCloudBatch
+
+        compare_fit_eval(cfg, state.model, PointCloudBatch.from_numpy(val_raw, "cuda"),
+                         PointCloudBatch.from_numpy(val_raw, "cpu"))
+    return numbers
+
+
+def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None, fit=None):
     """The {"kernels": [...]} entries: per kernel, its launches in the main
     path's run (None when it did not run), its times summed over one B = 8
     train step (forward: with the 53 inference convs beside them, and the
     launches and times of the inference API's requests, `api`), bounds and
-    errors, and its per-shape rows."""
+    errors, and its per-shape rows; with `fit`, each kernel's launches in
+    phase 9's fit and frozen-trunk runs."""
     flops = sum(r["flops"] * r["per_forward"] for r in rows)
     nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
     inference_bound, inference_by = _bound(flops, nbytes)
@@ -1318,6 +1792,24 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
         if kind == "fwd":
             entry_["inference"] = inference
             entry_["inference_api"] = api
+        if fit is not None:
+            entry_["fit"] = {
+                "launches": fit["fit"]["launches"][kind],
+                "per_step": {e: n[kind] for e, n in fit["fit"]["per_step"].items()},
+                "per_eval_forward": EVAL_FORWARD_LAUNCHES[kind],
+                "steps": fit["fit"]["steps"], "eval_forwards": fit["fit"]["eval_forwards"],
+                "frozen_launches": fit["frozen"]["launches"][kind],
+                "frozen_per_step": fit["frozen"]["per_step"][kind],
+                "max_abs_err": fit["fit"]["max_abs_err"][kind],
+                "work": f"trainer.fit at B = {FIT_BATCH}: 2 epochs of {FIT_TRAIN_CLOUDS // FIT_BATCH} "
+                        "steps (schedule [0, 1]) and a validation of 3 splits after each (one "
+                        f"padded batch of {FIT_VAL_BATCH} per split)",
+            }
+            entry_["max_abs_err"] = max(entry_["max_abs_err"], fit["fit"]["max_abs_err"][kind])
+            if kind == "fwd":
+                entry_["fit"].update({k: fit["fit"][k] for k in (
+                    "step_ms", "step_ms_window", "split_ms", "save_ms", "eval_forward_ms",
+                    "epoch_time_s")})
         kernels.append(entry_)
     return kernels
 
@@ -1436,12 +1928,16 @@ def main():
 
     # phase 7: the inference API (the fourth slice's main path)
     api = phase_inference_api(smi)
-    lap("phase 7 (inference API)", t)
+    t = lap("phase 7 (inference API)", t)
+
+    # phase 9: the trainer (the fifth slice's main path)
+    fit = phase_fit(smi)
+    lap("phase 9 (trainer)", t)
     lap("total", start)
 
     # phase 8: the kernel line, then the device line
     print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
-                                             train_launches, api)}))
+                                             train_launches, api, fit)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

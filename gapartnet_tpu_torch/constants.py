@@ -42,6 +42,20 @@ OBJECT_NAME2ID = {
     "Suitcase": 26,
 }
 
+# part class names (the trainer's per-class metric names)
+PART_ID2NAME = {
+    0: "others",
+    1: "line_fixed_handle",
+    2: "round_fixed_handle",
+    3: "slider_button",
+    4: "hinge_door",
+    5: "slider_drawer",
+    6: "slider_lid",
+    7: "hinge_lid",
+    8: "hinge_knob",
+    9: "revolute_handle",
+}
+
 # Per part class (0..9): symmetry type index (reference gapartnet.yaml:34).
 SYMMETRY_INDICES = (0, 1, 3, 3, 2, 0, 3, 2, 4, 1)
 

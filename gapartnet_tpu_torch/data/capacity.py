@@ -1,9 +1,13 @@
-"""Data-driven capacity sizing: the port's copy of the NumPy helpers of
-data/capacity.py that the bench setup uses (entry.bench_cloud_setup).
+"""Data-driven capacity sizing (the port's copy of data/capacity.py).
 
 The backbone grids and the hash-CCL tables have fixed capacities with
-counted overflow; these measure a cloud so the capacities fit it.
+counted overflow; these measure clouds so the capacities fit them: single
+clouds for the bench setup (entry.bench_cloud_setup), and samples of whole
+datasets through their loading and augmentation for the trainer's
+`auto_capacity` (scan_dataset_shapes, scan_hash_capacities).
 """
+
+from typing import Iterable, Sequence, Tuple
 
 import numpy as np
 
@@ -133,3 +137,127 @@ def _hash_components(
     comp_points = np.zeros(n_nodes, np.int64)
     np.add.at(comp_points, roots, counts)
     return int((comp_points[np.unique(roots)] >= min_points).sum())
+
+
+def _sample_indices(ds, max_samples: int) -> np.ndarray:
+    return np.unique(np.linspace(0, len(ds) - 1, min(len(ds), max_samples)).astype(int))
+
+
+def scan_level_capacities(
+    datasets: Iterable,
+    voxel_size: Sequence[float],
+    num_levels: int,
+    max_points: int,
+    *,
+    augment_trials: int = 3,
+    headroom: float = 1.08,
+    round_to: int = 128,
+    max_samples: int = 48,
+) -> Tuple[int, ...]:
+    """Per-level voxel capacities of `scan_dataset_shapes`."""
+    return scan_dataset_shapes(
+        datasets, voxel_size, num_levels, max_points, augment_trials=augment_trials,
+        headroom=headroom, round_to=round_to, max_samples=max_samples,
+    )[0]
+
+
+def scan_dataset_shapes(
+    datasets: Iterable,
+    voxel_size: Sequence[float],
+    num_levels: int,
+    max_points: int,
+    *,
+    augment_trials: int = 3,
+    headroom: float = 1.08,
+    aug_headroom: float = 1.16,
+    round_to: int = 128,
+    extent_round_to: int = 16,
+    max_samples: int = 48,
+) -> Tuple[Tuple[int, ...], Tuple[int, int, int]]:
+    """One pass over up to `max_samples` evenly spaced samples per dataset
+    (GAPartNetDataset-likes) -> (per-level capacities, level-0 grid extent).
+
+    Capacities: the largest unique-voxel count per level x headroom (x
+    `aug_headroom` once an augmenting dataset is scanned, over
+    `augment_trials` epochs of draws), rounded up to `round_to`, clamped to
+    [64, max_points].  Extent: the largest per-axis span x headroom,
+    rounded up to `extent_round_to`, at least 32."""
+    mx = np.zeros(num_levels, np.int64)
+    mx_hr = float(headroom)
+    span = np.zeros(3, np.int64)
+    for ds in datasets:
+        if ds is None or len(ds) == 0:
+            continue
+        idxs = _sample_indices(ds, max_samples)
+        trials = augment_trials if getattr(ds, "augmentation", False) else 1
+        if trials > 1:
+            mx_hr = max(mx_hr, float(aug_headroom))
+        epoch0 = getattr(ds, "epoch", 0)
+        try:
+            for t in range(trials):
+                ds.epoch = epoch0 + t
+                for i in idxs:
+                    item = ds[int(i)]
+                    xyz = item["points"][item["point_mask"]][:, :3]
+                    counts, sp = _counts_and_span(xyz, voxel_size, num_levels)
+                    mx = np.maximum(mx, counts)
+                    span = np.maximum(span, sp)
+        finally:
+            ds.epoch = epoch0
+    caps = np.ceil(mx * mx_hr / round_to).astype(np.int64) * round_to
+    caps = np.minimum(np.maximum(caps, 64), max_points)
+    ext = np.ceil(span * headroom / extent_round_to).astype(np.int64)
+    ext = np.maximum(ext * extent_round_to, 32)
+    return tuple(int(c) for c in caps), (int(ext[0]), int(ext[1]), int(ext[2]))
+
+
+def scan_hash_capacities(
+    datasets: Iterable,
+    radius: float,
+    *,
+    node_headroom: float = 1.3,
+    cand_margin: int = 8,
+    degree_margin: int = 6,
+    round_to: int = 256,
+    max_samples: int = 48,
+    max_points: int = 20000,
+) -> Tuple[int, int, int]:
+    """(hash_node_capacity per set, candidate cap, max degree) of the
+    hash-CCL tables, from the ground-truth labels of up to `max_samples`
+    samples per dataset:
+
+      * node cap: the most (cell, label) nodes x `node_headroom`, clamped
+        to the most foreground points, rounded up to `round_to`, in
+        [256, max_points];
+      * candidate cap: the most same-label candidates over the 62 probe
+        offsets + `cand_margin`, rounded up to 4, at most 60;
+      * degree: the largest connected degree of both clustering sets (the
+        points, and each point moved to its instance centre) +
+        `degree_margin`, rounded up to 4, in [8, candidate cap]."""
+    max_fg = max_nodes = max_cand = max_deg = 0
+    for ds in datasets:
+        if ds is None or len(ds) == 0:
+            continue
+        for i in _sample_indices(ds, max_samples):
+            item = ds[int(i)]
+            mask = item["point_mask"]
+            sem = item["sem_labels"][mask]
+            xyz = item["points"][mask][:, :3].astype(np.float64)
+            fg = sem > 0
+            max_fg = max(max_fg, int(fg.sum()))
+            n_nodes, cmax = _hash_occupancy(xyz[fg], sem[fg], radius)
+            max_nodes = max(max_nodes, n_nodes)
+            max_cand = max(max_cand, cmax)
+            max_deg = max(max_deg, _hash_connected_degree(xyz[fg], sem[fg], radius))
+            if "instance_regions" in item:
+                shifted = item["instance_regions"][mask][:, :3].astype(np.float64)
+                has_inst = item["instance_labels"][mask] >= 0
+                shifted = np.where(has_inst[:, None], shifted, xyz)
+                max_deg = max(max_deg, _hash_connected_degree(shifted[fg], sem[fg], radius))
+    node_cap = int(np.ceil(min(max_nodes * node_headroom, max_fg) / round_to))
+    node_cap = min(max(node_cap * round_to, 256), max_points)
+    cand_cap = min(max_cand + cand_margin, 62)
+    cand_cap = min(((cand_cap + 3) // 4) * 4, 60)
+    degree = ((max_deg + degree_margin + 3) // 4) * 4
+    degree = min(max(degree, 8), cand_cap)
+    return node_cap, cand_cap, degree

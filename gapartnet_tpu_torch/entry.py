@@ -205,7 +205,7 @@ def train_entry(device="cuda", batch_size: int = 8, seed: int = 0):
         GAPartNetConfig(), batch_size=batch_size, seed=seed, device=device
     )
     model = make_model(cfg, device, seed=seed).train()
-    optimizer = adam(model.parameters(), 1e-3)
+    optimizer = adam(model.named_parameters(), 1e-3)
     generator = torch.Generator().manual_seed(seed)
 
     def step_fn(batch):

@@ -11,12 +11,18 @@ package: `do_cluster`, `do_score`, `do_npcs`.  With labels in the batch the
 forward also returns the five losses, the IoUs against ground truth and
 the two accuracies; outputs a run does not produce are None.
 
+`frozen_bn` names the modules whose BatchNorms normalize with their running
+statistics in a training forward, as the JAX model's `frozen_bn` does: it
+reaches the backbone and `offset_bn` only, so the proposal UNets of a frozen
+score/NPCS branch keep using batch statistics.
+
 Module and parameter names follow the flax tree (weights.params_from_jax
 maps one onto the other).
 """
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -95,6 +101,20 @@ def prepare_input_grid(points: torch.Tensor, point_mask: torch.Tensor, cfg: GAPa
     return tuple(torch.stack(list(f)) for f in zip(*outs))
 
 
+@contextlib.contextmanager
+def _running_stats(module: nn.Module, frozen: bool):
+    """Within the block, `module`'s BatchNorms use (and keep) their running
+    statistics when `frozen` (eval mode; the mode is restored after)."""
+    if not (frozen and module.training):
+        yield
+        return
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train()
+
+
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     """x (B, R, ...) gathered at idx (B, Q) -> (B, Q, ...), zeros where ~ok
     (the JAX package's _gather_per_point, _gather_entries and
@@ -131,6 +151,21 @@ class GAPartNet(nn.Module):
         self.npcs_unet = ProposalUNet(cfg.channels[:2], cfg.block_repeat)
         self.npcs_head = nn.Linear(fea, 3 * (c - 1))
 
+    def with_config(self, cfg: GAPartNetConfig) -> "GAPartNet":
+        """A GAPartNet that runs with `cfg` (other capacities, e.g. the eval
+        ones of config.eval_capacity_config) on this model's own submodules,
+        so on its parameters and buffers, not on a copy."""
+        for f in ("in_channels", "num_part_classes", "backbone_type", "channels", "block_repeat"):
+            if getattr(cfg, f) != getattr(self.cfg, f):
+                raise ValueError(f"with_config: {f} {getattr(cfg, f)} differs from the model's "
+                                 f"{getattr(self.cfg, f)}")
+        view = GAPartNet.__new__(GAPartNet)
+        nn.Module.__init__(view)
+        view.cfg = cfg
+        for name, child in self.named_children():
+            view.add_module(name, child)
+        return view.train(self.training)
+
     def forward(
         self,
         batch: PointCloudBatch,
@@ -141,6 +176,7 @@ class GAPartNet(nn.Module):
         cluster_offset_override: Optional[torch.Tensor] = None,
         jitter: Optional[torch.Tensor] = None,
         proposals_override: Optional[SampleProposals] = None,
+        frozen_bn: Tuple[str, ...] = (),
     ) -> ModelOutput:
         """proposals_override: externally supplied point groups (batched
         SampleProposals, e.g. instance masks) that replace clustering;
@@ -152,7 +188,10 @@ class GAPartNet(nn.Module):
 
         jitter: (2, 3) uniform [0, 1) draws (rand_a, rand_b) placing the
         proposal cubes in training (train.loop.train_step draws them); eval
-        places every cube at the centre."""
+        places every cube at the centre.
+
+        frozen_bn: see the module docstring (train.loop.train_step passes its
+        freeze_prefixes)."""
         cfg = self.cfg
         train = self.training
         c = cfg.num_part_classes
@@ -173,7 +212,8 @@ class GAPartNet(nn.Module):
             keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent
         )
         counters["backbone_voxels_dropped"] = sum(ds.num_dropped for ds in hierarchy.downsamples)
-        voxel_out = self.backbone(vfeats.contiguous(), hierarchy)
+        with _running_stats(self.backbone, "backbone" in frozen_bn):
+            voxel_out = self.backbone(vfeats.contiguous(), hierarchy)
         pc_feats = _gather_rows(voxel_out, pc_voxel_id, pc_voxel_id >= 0)   # (B, N, fea)
 
         # semantic head
@@ -196,7 +236,8 @@ class GAPartNet(nn.Module):
             pixel_accu = L.pixel_accuracy(flat_preds, flat_labels, flat_mask & (flat_labels > 0))
 
         # offset head
-        x = torch.relu(self.offset_bn(self.offset_mlp0(pc_feats), point_mask))
+        with _running_stats(self.offset_bn, "offset_bn" in frozen_bn):
+            x = torch.relu(self.offset_bn(self.offset_mlp0(pc_feats), point_mask))
         offset_preds = self.offset_mlp1(x)
         if has_labels and batch.instance_regions is not None:
             gt_offsets = batch.instance_regions[..., :3] - pt_xyz

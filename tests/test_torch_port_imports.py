@@ -14,6 +14,7 @@ _IMPORT_ALL = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["yaml"] = None
 import importlib, pkgutil
 import gapartnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gapartnet_tpu_torch.__path__, "gapartnet_tpu_torch.")]
@@ -33,7 +34,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stderr
     # every module of the slices so far was imported
-    assert int(r.stdout.strip().splitlines()[-1]) >= 35
+    assert int(r.stdout.strip().splitlines()[-1]) >= 40
 
 
 def test_training_slice_modules_exist():
@@ -46,6 +47,26 @@ def test_inference_slice_modules_exist():
     for name in ("ops/nms.py", "ops/fps.py", "ops/umeyama.py", "ops/cpd.py", "eval/ap.py",
                  "infer/api.py", "data/loader.py", "demo.py"):
         assert (PORT / name).exists(), name
+
+
+def test_trainer_slice_modules_exist():
+    for name in ("train/config.py", "train/yaml_reader.py", "train/trainer.py", "train/cli.py",
+                 "train/ckpt_convert.py", "data/capacity.py"):
+        assert (PORT / name).exists(), name
+
+
+def test_train_modules_import_without_jax_or_yaml():
+    """Each train/*.py module on its own, PyYAML blocked too (the card's
+    machine has none)."""
+    mods = sorted(f"gapartnet_tpu_torch.train.{p.stem}" for p in (PORT / "train").glob("*.py")
+                  if p.stem != "__init__")
+    assert len(mods) >= 6
+    code = ("import sys, importlib\n"
+            "for m in ('jax', 'flax', 'yaml'):\n    sys.modules[m] = None\n"
+            f"for name in {mods!r}:\n    importlib.import_module(name)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
 
 
 def _imported_modules(path: Path):

@@ -262,7 +262,7 @@ def test_adam_matches_optax():
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
     tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
-    opt = tloop.adam(tp.values(), 1e-3)
+    opt = tloop.adam(tp.items(), 1e-3)
     for g in grads:
         updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
         jp = optax.apply_updates(jp, updates)
@@ -284,7 +284,7 @@ def test_train_step_metrics(setup):
     optimizer step taken, running statistics moved."""
     jm, variables, _, tbatch, sem, off = setup
     tm = _port_model(variables)
-    opt = tloop.adam(tm.parameters(), 1e-3)
+    opt = tloop.adam(tm.named_parameters(), 1e-3)
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     metrics = tloop.train_step(tm, opt, tbatch, torch.Generator().manual_seed(0), True, True,
                                True, torch.from_numpy(sem), torch.from_numpy(off))
