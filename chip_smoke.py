@@ -64,7 +64,7 @@ source, in parallel), then:
      1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
   8. prints the wall time of each phase, one {"kernels": [...]} JSON line,
      the nvidia-smi line and, last, the device line {"ok": true, "device":
-     {...}}, after phase 9;
+     {...}}, after phase 10;
   9. the trainer (the fifth slice's main path), in a temporary directory:
      a dataset of assets/bench_cloud.npz rotated about z (88 train clouds,
      3 per eval split, so each eval split ends in a padded batch);
@@ -87,13 +87,34 @@ source, in parallel), then:
      bitwise unchanged, the score and NPCS parameters moved); then the CLI
      in two subprocesses, as users run it: `fit --trainer.ckpt_path` of
      the epoch-0 checkpoint (resumes at epoch 1 with its step counts and
-     jitter generator, logs epoch 1 only) and `test` of `last`; last, one
-     reduced eval step on the val split's batch of 4 (its last cloud
-     padded, with no valid point) at the eval capacities with the fit's
+     jitter generator, logs epoch 1 only; under `python -m
+     torch.distributed.run --standalone --nproc_per_node 1`, so NCCL and the
+     CLI's launcher branch run at world size 1) and `test` of `last`; last,
+     one reduced eval step on the val split's last batch of 2 (its last
+     cloud padded, with no valid point) at the eval capacities with the fit's
      weights on the card and on the CPU (conf, keep, rep_cls and counters
      exactly, scores and IoUs within 1e-4, no proposal kept in the padded
      cloud; a near-tie sem flip switches to the CPU forward on the card's
-     proposals, as in phase 7).
+     proposals, as in phase 7);
+ 10. data-parallel training (the sixth slice's main path): two ranks in
+     spawned processes on the one card (gloo; NCCL refuses two ranks on one
+     card), each with B = 4 of phase 5's 8 clouds, phase 5's seeded weights
+     and jitter, the clustering overrides and all three stages.  First, in
+     this process, the one-process B = 8 card step from that start and four
+     probes (phase 6's rounding allowance).  Each rank holds the forward,
+     dgrad and wgrad kernels against their plain versions at its own
+     shapes, takes 2 warm-up steps (the first held against the one-process
+     step: the ranks' summed losses and the running statistics within 1e-4
+     of magnitude, gradients within phase 6's allowance) and 10 timed
+     steps (77 / 76 / 77 launches per step, zero counters, finite losses;
+     ms per step, all-reduces per step, gradient bytes per step), checks
+     its parameters and buffers bitwise against rank 0's, and times the
+     gradient all-reduce alone (CUDA events).  Then `trainer.fit` on both
+     ranks for one epoch on phase 9's dataset cut to 23 train clouds: the
+     shards disjoint and covering, the same number of steps (the fewer full
+     batches: 2), the same logged metrics, and metrics.jsonl and the
+     checkpoints from rank 0 alone.  The ranks share the card and the host,
+     so their step times are no scaling figure.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -104,7 +125,7 @@ To compare two versions of the kernels on one card, in one call:
     python3 chip_smoke.py --kernels-only
 
 runs phases 1, 2 and the kernel half of 5 on that checkout's package and
-prints the kernel line (launches null) and the nvidia-smi line.
+prints the kernel line (launches null) and the nvidia-smi line (no phase 10).
 """
 
 import dataclasses
@@ -134,7 +155,7 @@ SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UBLKCP")
 TIMED_LAUNCHES = 20
 PROFILE_WINDOWS = 3
 WARMUP_REQUESTS = 5
-TIMED_REQUESTS = 100
+TIMED_REQUESTS = 50
 CONVS_PER_FORWARD = 53
 TRAIN_BATCH = 8
 WARMUP_STEPS = 3
@@ -198,6 +219,9 @@ FIT_BATCH = TRAIN_BATCH                            # the reference's 64 over 8 c
 FIT_TRAIN_CLOUDS = 11 * FIT_BATCH
 FIT_EVAL_CLOUDS = 3
 FIT_VAL_BATCH = 4
+# the card-vs-CPU reduced eval step: the val split's last batch of this
+# size, one cloud and one padded (the CPU eval forward dominates its time)
+FIT_COMPARE_BATCH = 2
 FIT_OVERRIDES = (
     ("data.init_args.train_batch_size", str(FIT_BATCH)),
     ("data.init_args.val_batch_size", str(FIT_VAL_BATCH)),
@@ -217,6 +241,25 @@ FREEZE = ("backbone", "sem_seg_head", "offset_mlp0", "offset_bn", "offset_mlp1")
 # card vs CPU reduced eval step: scores and IoUs
 FIT_SCORE_RTOL = 1e-4
 CLI_TIMEOUT_S = 600
+# data parallel (phase 10): two gloo ranks on the one card (NCCL refuses two
+# ranks on one card), B = 4 each of phase 5's 8 clouds; the time per step of
+# a rank is not a scaling figure, since the ranks share the card and host
+DP_WORLD = 2
+DP_BATCH = TRAIN_BATCH // DP_WORLD
+DP_WARMUP_STEPS = 2
+DP_TIMED_STEPS = 10
+DP_ALLREDUCE_RUNS = 5
+# the 2-rank fit: phase 9's dataset with 23 train clouds, so the ranks'
+# shards hold 12 and 11 (3 and 2 batches of 4) and the fewer, 2, is what
+# both run; one epoch with every stage
+DP_FIT_TRAIN_CLOUDS = 23
+DP_FIT_STEPS = (DP_FIT_TRAIN_CLOUDS // DP_WORLD) // DP_BATCH
+DP_FIT_OVERRIDES = (
+    ("data.init_args.train_batch_size", str(DP_BATCH)),
+    ("model.init_args.training_schedule", "[0, 0]"),
+    ("trainer.max_epochs", "1"),
+)
+DP_TIMEOUT_S = 600
 
 
 def smi_line() -> str:
@@ -768,13 +811,13 @@ def phase_train(cfg, batch, cluster_sem, cluster_off, smi):
     return step, launches, times
 
 
-def _first(batch, n):
-    """The first n clouds of a batch."""
+def _clouds(batch, lo, hi):
+    """Clouds lo..hi-1 of a batch."""
     import torch
 
     return type(batch)(**{
-        f.name: (getattr(batch, f.name)[:n] if isinstance(getattr(batch, f.name), torch.Tensor)
-                 else getattr(batch, f.name)[:n] if isinstance(getattr(batch, f.name), list)
+        f.name: (getattr(batch, f.name)[lo:hi]
+                 if isinstance(getattr(batch, f.name), (torch.Tensor, list))
                  else getattr(batch, f.name))
         for f in dataclasses.fields(batch)
     })
@@ -836,7 +879,7 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
 
     jitter = torch.rand((2, 3), generator=torch.Generator().manual_seed(7))
-    sub, sem, off = _first(batch, n), cluster_sem[:n], cluster_off[:n]
+    sub, sem, off = _clouds(batch, 0, n), cluster_sem[:n], cluster_off[:n]
 
     def run(dev, what, probe=None):
         t0 = time.perf_counter()
@@ -1311,18 +1354,18 @@ def phase_inference_api(smi):
     return numbers
 
 
-def write_fit_dataset(root):
+def write_fit_dataset(root, train_clouds=FIT_TRAIN_CLOUDS):
     """The fit's dataset under `root`, in the .npz layout load_cloud_file
     reads: assets/bench_cloud.npz rotated about z (entry.rotation_z), the
-    train split at FIT_TRAIN_CLOUDS angles 2 pi i / FIT_TRAIN_CLOUDS, each
-    eval split at FIT_EVAL_CLOUDS of the angles half-way between."""
+    train split at `train_clouds` angles 2 pi i / train_clouds, each eval
+    split at FIT_EVAL_CLOUDS of the angles half-way between."""
     import numpy as np
 
     from gapartnet_tpu_torch.entry import BENCH_CLOUD, rotation_z
 
     d = np.load(BENCH_CLOUD)
-    step = 2 * np.pi / FIT_TRAIN_CLOUDS
-    angles = {"train": [i * step for i in range(FIT_TRAIN_CLOUDS)]}
+    step = 2 * np.pi / train_clouds
+    angles = {"train": [i * step for i in range(train_clouds)]}
     for si, split in enumerate(("val", "test_intra", "test_inter")):
         angles[split] = [(si * FIT_EVAL_CLOUDS + j + 0.5) * step for j in range(FIT_EVAL_CLOUDS)]
     for split, thetas in angles.items():
@@ -1440,16 +1483,20 @@ def _print_counters(tag, lines):
               + ", ".join(f"{k} {v:g}" for k, v in counters.items()))
 
 
-def run_cli(tag, args, cwd):
+def run_cli(tag, args, cwd, torchrun=False):
     """`python -m gapartnet_tpu_torch.train.cli <args>` in `cwd`, on the
-    card (no --device), as a user runs it; returns its stdout."""
+    card (no --device), as a user runs it; with `torchrun`, under
+    `python -m torch.distributed.run --standalone --nproc_per_node 1` (one
+    process, NCCL).  Returns its stdout."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p))
     cwd.mkdir(parents=True, exist_ok=True)
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
+    cmd = [*(launcher if torchrun else []), "-m", "gapartnet_tpu_torch.train.cli", *args]
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "gapartnet_tpu_torch.train.cli", *args], cwd=cwd,
-                       env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-    print(f"[{tag}] python -m gapartnet_tpu_torch.train.cli {args[0]} ...: exit {r.returncode} in "
+    r = subprocess.run([sys.executable, *cmd], cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT_S)
+    print(f"[{tag}] python {' '.join(cmd[:len(cmd) - len(args) + 1])} ...: exit {r.returncode} in "
           f"{time.perf_counter() - t0:.1f} s")
     if r.returncode != 0:
         raise AssertionError(f"{tag}: the CLI failed:\n{r.stdout[-3000:]}\n{r.stderr[-5000:]}")
@@ -1651,6 +1698,8 @@ def phase_fit(smi):
                                                shuffle_seed=cfg.trainer.seed + 1))
         *_, val_raw = trainer._iter_batches(datasets["val"], FIT_VAL_BATCH, drop_last=False)
         numbers["fit"]["max_abs_err"] = fit_kernels(cfg, state.model, train_raw, val_raw)
+        # the card-vs-CPU eval step's batch: the val split's last batch of 2, a cloud and a pad
+        *_, pair_raw = trainer._iter_batches(datasets["val"], FIT_COMPARE_BATCH, drop_last=False)
 
         # a frozen-trunk epoch warm-started from `last`
         last = tmp / "fit" / "checkpoints" / "last"
@@ -1699,11 +1748,13 @@ def phase_fit(smi):
                       if p.name.startswith("epoch_000"))
         saved = trainer.CkptManager.restore(str(epoch0))
         crc = zlib.crc32(saved["generator"].numpy().tobytes())
-        out = run_cli("fit resume", ["fit", *base, "--trainer.ckpt_path", str(epoch0)], tmp / "resume")
+        out = run_cli("fit resume", ["fit", *base, "--trainer.ckpt_path", str(epoch0)], tmp / "resume",
+                      torchrun=True)
         want = (f"at epoch 1 (step {saved['step']}, gstep {saved['gstep']}, jitter generator state "
                 f"crc32 {crc:08x})")
-        if want not in out:
-            raise AssertionError(f"fit resume: no '{want}' in its output:\n{out[-2000:]}")
+        for line in (want, "data parallel: rank 0 of 1 (nccl)"):
+            if line not in out:
+                raise AssertionError(f"fit resume: no '{line}' in its output:\n{out[-2000:]}")
         rlines = _metric_lines(tmp / "resume" / "metrics.jsonl")
         check_metric_lines("fit resume", rlines, cfg)
         epochs = [int(line["epoch"]) for line in rlines if "epoch" in line]
@@ -1725,18 +1776,322 @@ def phase_fit(smi):
         # card vs CPU: one reduced eval step on the val split's padded batch
         from gapartnet_tpu_torch.structures import PointCloudBatch
 
-        compare_fit_eval(cfg, state.model, PointCloudBatch.from_numpy(val_raw, "cuda"),
-                         PointCloudBatch.from_numpy(val_raw, "cpu"))
+        compare_fit_eval(cfg, state.model, PointCloudBatch.from_numpy(pair_raw, "cuda"),
+                         PointCloudBatch.from_numpy(pair_raw, "cpu"))
     return numbers
 
 
-def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None, fit=None):
+def dp_reference(cfg, batch, cluster_sem, cluster_off, path):
+    """The one-process card step that the data-parallel first step must
+    equal: phase 5's first step (seed-0 weights, the first jitter draw of
+    seed 0, B = 8) as a forward and backward, and the four probes of phase
+    6 at B = 8 for the gradients' rounding allowance; saved to `path`."""
+    import torch
+
+    from gapartnet_tpu_torch.train.loop import draw_jitter
+
+    jitter = draw_jitter(torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    model, out, _ = _train_pass(cfg, batch, "cuda", cluster_sem, cluster_off, jitter)
+    grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    own = dict.fromkeys(grads, 0.0)
+    for probe in PROBES:
+        pm, _, _ = _train_pass(cfg, batch, "cuda", cluster_sem, cluster_off, jitter, probe)
+        for k, p in pm.named_parameters():
+            own[k] = max(own[k], float((p.grad.cpu() - grads[k]).abs().max()))
+    torch.cuda.synchronize()
+    torch.save(dict(grads=grads, own=own,
+                    stats={k: v.cpu() for k, v in model.state_dict().items() if "running_" in k},
+                    losses={f"loss/{k}": float(getattr(out, k).detach()) for k in out.LOSSES}),
+               path)
+    print(f"[dp] reference: the one-process B={batch.batch_size} card step from phase 5's start "
+          f"and {len(PROBES)} probes ({time.perf_counter() - t0:.1f} s)")
+
+
+def _check_dp_first_step(rank_tag, metrics, model, ref):
+    """The first data-parallel step against the one-process reference:
+    the ranks' summed losses and the running statistics within 1e-4 of
+    magnitude, every gradient within phase 6's allowance."""
+    import torch
+
+    for k, want in ref["losses"].items():
+        got = metrics[k]
+        if not abs(got - want) <= LOSS_RTOL * max(abs(want), 1.0):
+            raise AssertionError(f"{rank_tag}: {k} summed over the ranks {got} vs {want}")
+    state = model.state_dict()
+    worst_stats = 0.0
+    for k, want in ref["stats"].items():
+        err = float((state[k].cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= STATS_RTOL * scale:
+            raise AssertionError(f"{rank_tag}: {k} max|d| {err} > {STATS_RTOL} * {scale}")
+        worst_stats = max(worst_stats, err / scale)
+    top = max(float(g.abs().max()) for g in ref["grads"].values())
+    worst, failures = 0.0, []
+    for k, p in model.named_parameters():
+        want = ref["grads"][k]
+        scale = max(float(want.abs().max()), GRAD_FLOOR * top)
+        err = float((p.grad.cpu() - want).abs().max())
+        allowed = GRAD_RTOL * scale + KINK_FACTOR * ref["own"][k]
+        worst = max(worst, err / allowed)
+        if err > allowed:
+            failures.append(f"{k}: max|d| {err} > {GRAD_RTOL} * {scale} + {KINK_FACTOR} * "
+                            f"{ref['own'][k]}")
+    if failures:
+        raise AssertionError(f"{rank_tag}: gradients vs the one-process step:\n"
+                             + "\n".join(failures))
+    print(f"[{rank_tag}] first step vs the one-process B={TRAIN_BATCH} step: losses within "
+          f"{LOSS_RTOL}, running statistics worst max|d| / max|ref| {worst_stats:.3e}, gradients "
+          f"worst max|d| / allowed {worst:.3f}")
+    return dict(worst_grad=worst, worst_stats=worst_stats)
+
+
+def _dp_step_rank(rank, dev, tmp):
+    """Part (a) on one rank: the kernels against their plain versions at
+    this rank's shapes, then the data-parallel train step at B = DP_BATCH:
+    the first step against the reference, DP_WARMUP_STEPS - 1 more, then
+    DP_TIMED_STEPS timed ones (launches and all-reduces counted), the
+    parameters and buffers bitwise against rank 0's, and the gradient
+    all-reduce alone timed."""
+    import torch
+    import torch.distributed as dist
+
+    from gapartnet_tpu_torch.entry import make_model
+    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.parallel import dist as pdist
+    from gapartnet_tpu_torch.train.loop import adam, train_step
+
+    tag = f"dp rank {rank}"
+    inp = torch.load(tmp / "inputs.pt", weights_only=False)
+    cfg = inp["cfg"]
+    lo, hi = rank * DP_BATCH, (rank + 1) * DP_BATCH
+    sub = _clouds(inp["batch"], lo, hi).to(dev)
+    sem, off = inp["sem"][lo:hi].to(dev), inp["off"][lo:hi].to(dev)
+
+    keys, _, nvox, _ = prepare_input_grid(sub.points, sub.point_mask, cfg)
+    hier = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
+    rows = phase_train_kernels(train_conv_shapes(cfg, hier, proposal_geometry(cfg, sub, sem, off)),
+                               tag=f"{tag} kernel", timed=False)
+    err = {k: max(r[k]["max_abs_err"] for r in rows) for k in ("fwd", "dgrad", "wgrad")}
+
+    model = make_model(cfg, dev, seed=0).train()
+    opt = adam(model.named_parameters(), 1e-3)
+    gen = torch.Generator().manual_seed(0)
+
+    def step():
+        return train_step(model, opt, sub, gen, True, True, True,
+                          cluster_sem_override=sem, cluster_offset_override=off)
+
+    first = step()
+    # the step's losses of the whole batch: the sum of the ranks' parts
+    names = [k for k in first if k.startswith("loss/")]
+    summed = pdist.all_reduce_(torch.stack([first[k] for k in names]))
+    compared = None
+    if rank == 0:
+        compared = _check_dp_first_step(tag, dict(zip(names, summed.tolist())), model,
+                                        torch.load(tmp / "reference.pt", weights_only=False))
+    history = [first] + [step() for _ in range(DP_WARMUP_STEPS - 1)]
+    torch.cuda.synchronize()
+
+    calls = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    reset_launches()
+    times = []
+    try:
+        for _ in range(DP_TIMED_STEPS):
+            t0 = time.perf_counter()
+            history.append(step())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.all_reduce = all_reduce
+    launches = dict(LAUNCHES)
+    want = {k: n * DP_TIMED_STEPS for k, n in LAUNCHES_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"{tag}: {DP_TIMED_STEPS} steps launched {launches}, expected {want}")
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        nonzero = {k: float(v) for k, v in m.items() if k.startswith("counters/") and float(v)}
+        if bad or nonzero:
+            raise AssertionError(f"{tag} step {i + 1}: non-finite {bad}, counters {nonzero}")
+
+    flat = torch.cat([t.detach().reshape(-1).view(torch.uint8)
+                      for t in [*model.parameters(), *model.buffers()]])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    if not torch.equal(ref, flat):
+        raise AssertionError(f"{tag}: parameters or buffers differ from rank 0's after "
+                             f"{len(history)} steps")
+
+    params = [p for group in opt.param_groups for p in group["params"]]
+    grads = torch.cat([p.grad.reshape(-1) for p in params])
+    event_ms, host_ms = [], []
+    for _ in range(DP_ALLREDUCE_RUNS):
+        buf = grads.clone()
+        pdist.barrier()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        pdist.all_reduce_(buf)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+    q = _quantiles(times)
+    print(f"[{tag}] B={DP_BATCH} ms per data-parallel step over {DP_TIMED_STEPS} steps: median "
+          f"{q['median']:.3f}, p10 {q['p10']:.3f}, p90 {q['p90']:.3f} (two ranks share one card and "
+          f"its host: not a scaling figure); {calls[0] // DP_TIMED_STEPS} all-reduces per step, "
+          f"{grads.numel() * grads.element_size()} gradient bytes per step; gradient all-reduce "
+          f"alone {statistics.median(event_ms):.3f} ms (CUDA events; host {statistics.median(host_ms):.3f})"
+          f"; launches {launches}; counters 0; bitwise equal to rank 0")
+    return dict(ms=times, median_ms=q["median"], p10_ms=q["p10"], p90_ms=q["p90"],
+                allreduces_per_step=calls[0] / DP_TIMED_STEPS,
+                grad_bytes=grads.numel() * grads.element_size(),
+                allreduce_ms=statistics.median(event_ms),
+                allreduce_host_ms=statistics.median(host_ms), launches=launches,
+                max_abs_err=err, first_step=compared,
+                losses_first={k: float(v) for k, v in zip(names, summed.tolist())})
+
+
+def _dp_fit_rank(rank, dev, tmp):
+    """Part (b) on one rank: trainer.fit on the cut dataset, recording this
+    rank's file shards, its train steps and eval forwards, and every
+    metric dict the trainer logs (rank 0 writes it; every rank holds it)."""
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.train import trainer
+
+    cfg = fit_config(tmp / "fitdata", tmp / f"fit_rank{rank}", extra=DP_FIT_OVERRIDES)
+    seen = dict(paths={}, logged=[])
+    build, log = trainer.build_datasets, trainer.MetricLogger.log
+
+    def record_build(*a, **kw):
+        datasets = build(*a, **kw)
+        seen["paths"] = {k: [Path(p).name for p in ds.paths] for k, ds in datasets.items()}
+        return datasets
+
+    def record_log(self, metrics, step):
+        seen["logged"].append(dict(metrics, step=step))
+        return log(self, metrics, step)
+
+    trainer.build_datasets, trainer.MetricLogger.log = record_build, record_log
+    reset_launches()
+    try:
+        with FitProbe() as probe:
+            trainer.fit(cfg, device=dev)
+    finally:
+        trainer.build_datasets, trainer.MetricLogger.log = build, log
+    _check_launches(f"dp rank {rank} fit step", probe.steps, lambda r: LAUNCHES_PER_STEP)
+    _check_launches(f"dp rank {rank} fit eval forward", probe.evals, lambda r: EVAL_FORWARD_LAUNCHES)
+    print(f"[dp rank {rank} fit] {len(probe.steps)} steps: "
+          + ", ".join(f"{r['ms']:.3f}" for r in probe.steps) + f" ms; {len(probe.evals)} eval "
+          f"forwards; train shard {len(seen['paths']['train'])} clouds")
+    return dict(seen, steps=len(probe.steps), step_ms=[r["ms"] for r in probe.steps],
+                evals=len(probe.evals), launches=dict(LAUNCHES),
+                model=repr(cfg.model))
+
+
+def dp_rank(rank, world, device, tmp):
+    """One rank of phase 10, in a spawned process: a gloo group over a file
+    store in `tmp` on `device`, then parts (a) and (b); the results go to
+    tmp/rank<r>.json.  Any failure raises (and the parent's spawn kills the
+    other rank)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from gapartnet_tpu_torch.entry import use_fp32_math
+
+    tmp = Path(tmp)
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    use_fp32_math()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        res = dict(step=_dp_step_rank(rank, dev, tmp), fit=_dp_fit_rank(rank, dev, tmp))
+    finally:
+        dist.destroy_process_group()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def phase_dp(cfg, batch, cluster_sem, cluster_off, smi):
+    """The sixth slice: data-parallel training, two gloo ranks on the one
+    card.  Returns the per-rank numbers for the kernel line."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="gapartnet_dp_") as tmp:
+        tmp = Path(tmp)
+        dp_reference(cfg, batch, cluster_sem, cluster_off, tmp / "reference.pt")
+        torch.save(dict(cfg=cfg, batch=batch.to("cpu"), sem=cluster_sem.cpu(),
+                        off=cluster_off.cpu()), tmp / "inputs.pt")
+        write_fit_dataset(tmp / "fitdata", train_clouds=DP_FIT_TRAIN_CLOUDS)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(DP_WORLD, "cuda:0", str(tmp)), nprocs=DP_WORLD, join=True)
+        print(f"[dp] {DP_WORLD} ranks on one card: {time.perf_counter() - t0:.1f} s")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+
+        fits = [r["fit"] for r in ranks]
+        for split in fits[0]["paths"]:
+            shards = [set(f["paths"][split]) for f in fits]
+            files = {p.name for p in (tmp / "fitdata" / split / "pth").iterdir()}
+            if set.intersection(*shards) or set.union(*shards) != files:
+                raise AssertionError(f"dp fit: {split} shards {shards} are not a partition of {files}")
+        steps = [f["steps"] for f in fits]
+        if steps != [DP_FIT_STEPS] * DP_WORLD:
+            raise AssertionError(f"dp fit: steps per rank {steps}, expected {DP_FIT_STEPS} on each")
+        logged = [[{k: v for k, v in m.items() if k != "epoch_time_s"} for m in f["logged"]]
+                  for f in fits]
+        if any(lg != logged[0] for lg in logged) or len(logged[0]) != 2:
+            raise AssertionError(f"dp fit: the ranks logged different metrics: {logged}")
+        if any(f["model"] != fits[0]["model"] for f in fits):
+            raise AssertionError("dp fit: the ranks built different model configs")
+        wrote = [sorted(p.name for p in (tmp / f"fit_rank{r}").rglob("*"))
+                 if (tmp / f"fit_rank{r}").exists() else [] for r in range(DP_WORLD)]
+        if any(wrote[1:]) or "metrics.jsonl" not in wrote[0] or "last" not in wrote[0]:
+            raise AssertionError(f"dp fit: files written per rank {wrote}")
+        written = _metric_lines(tmp / "fit_rank0" / "metrics.jsonl")
+        if [{k: v for k, v in m.items() if k != "epoch_time_s"} for m in written] != logged[0]:
+            raise AssertionError("dp fit: metrics.jsonl differs from the logged metrics")
+        dps = [r["step"] for r in ranks]
+        print(f"[dp] ms per data-parallel step per rank (B={DP_BATCH}, {DP_TIMED_STEPS} steps; two "
+              f"ranks share one card and its host: not a scaling figure): median "
+              f"{[round(r['median_ms'], 3) for r in dps]}, p10 "
+              f"{[round(r['p10_ms'], 3) for r in dps]}, p90 {[round(r['p90_ms'], 3) for r in dps]}"
+              f"; all-reduces per step {dps[0]['allreduces_per_step']:g}, gradient bytes per step "
+              f"{dps[0]['grad_bytes']}, gradient all-reduce alone "
+              f"{[round(r['allreduce_ms'], 3) for r in dps]} ms; first step vs the one-process "
+              f"step: gradients {dps[0]['first_step']['worst_grad']:.3f} of the allowance, "
+              f"running statistics {dps[0]['first_step']['worst_stats']:.3e} of scale  ({smi})")
+        print(f"[dp fit] shards {[{s: len(p) for s, p in f['paths'].items()} for f in fits]} "
+              f"(disjoint, covering); {steps} steps (the fewer full batches of {DP_BATCH}); both "
+              f"ranks logged the same {len(logged[0])} lines; rank 0 alone wrote {wrote[0]}; "
+              f"train_loss/total_loss {logged[0][0]['train_loss/total_loss']:.4f}  ({smi})")
+    return ranks
+
+
+def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None, fit=None,
+                dp=None):
     """The {"kernels": [...]} entries: per kernel, its launches in the main
     path's run (None when it did not run), its times summed over one B = 8
     train step (forward: with the 53 inference convs beside them, and the
     launches and times of the inference API's requests, `api`), bounds and
     errors, and its per-shape rows; with `fit`, each kernel's launches in
-    phase 9's fit and frozen-trunk runs."""
+    phase 9's fit and frozen-trunk runs; with `dp`, each rank's launches in
+    phase 10's timed data-parallel steps and its fit."""
     flops = sum(r["flops"] * r["per_forward"] for r in rows)
     nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
     inference_bound, inference_by = _bound(flops, nbytes)
@@ -1810,6 +2165,23 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
                 entry_["fit"].update({k: fit["fit"][k] for k in (
                     "step_ms", "step_ms_window", "split_ms", "save_ms", "eval_forward_ms",
                     "epoch_time_s")})
+        if dp is not None:
+            entry_["dp"] = {
+                "launches": [r["step"]["launches"][kind] for r in dp],
+                "per_step": LAUNCHES_PER_STEP[kind], "steps": DP_TIMED_STEPS,
+                "fit_launches": [r["fit"]["launches"][kind] for r in dp],
+                "fit_steps": [r["fit"]["steps"] for r in dp],
+                "max_abs_err": max(r["step"]["max_abs_err"][kind] for r in dp),
+                "work": f"{DP_WORLD} gloo ranks on one card, B = {DP_BATCH} each: "
+                        f"{DP_TIMED_STEPS} timed train steps per rank (all stages), then "
+                        f"trainer.fit for one epoch of {DP_FIT_STEPS} steps per rank",
+            }
+            entry_["max_abs_err"] = max(entry_["max_abs_err"], entry_["dp"]["max_abs_err"])
+            if kind == "fwd":
+                entry_["dp"].update({k: [r["step"][k] for r in dp] for k in (
+                    "median_ms", "p10_ms", "p90_ms", "allreduces_per_step", "grad_bytes",
+                    "allreduce_ms")}, first_step=dp[0]["step"]["first_step"],
+                    fit_step_ms=[r["fit"]["step_ms"] for r in dp])
         kernels.append(entry_)
     return kernels
 
@@ -1932,12 +2304,16 @@ def main():
 
     # phase 9: the trainer (the fifth slice's main path)
     fit = phase_fit(smi)
-    lap("phase 9 (trainer)", t)
+    t = lap("phase 9 (trainer)", t)
+
+    # phase 10: data-parallel training (the sixth slice's main path)
+    dp = phase_dp(tcfg, tbatch, tsem, toff, smi)
+    lap("phase 10 (data parallel)", t)
     lap("total", start)
 
     # phase 8: the kernel line, then the device line
     print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
-                                             train_launches, api, fit)}))
+                                             train_launches, api, fit, dp)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

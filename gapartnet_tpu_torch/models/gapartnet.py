@@ -16,6 +16,12 @@ statistics in a training forward, as the JAX model's `frozen_bn` does: it
 reaches the backbone and `offset_bn` only, so the proposal UNets of a frozen
 score/NPCS branch keep using batch statistics.
 
+A training forward in a data-parallel run (parallel/dist.py) takes its
+BatchNorm statistics and the counts of its loss and accuracy means over
+every rank; its collectives follow from the stage flags and the config
+alone, so every rank issues the same ones in the same order, also a rank
+without foreground points or proposals.  An eval forward issues none.
+
 Module and parameter names follow the flax tree (weights.params_from_jax
 maps one onto the other).
 """
@@ -227,13 +233,16 @@ class GAPartNet(nn.Module):
             sem_loss = L.focal_loss if cfg.use_sem_focal_loss else L.cross_entropy_loss
             kw = dict(gamma=2.0) if cfg.use_sem_focal_loss else {}
             loss_sem = sem_loss(flat_logits, flat_labels, flat_mask,
-                                ignore_index=cfg.ignore_sem_label, alpha=cfg.sem_focal_alpha, **kw)
+                                ignore_index=cfg.ignore_sem_label, alpha=cfg.sem_focal_alpha,
+                                across_ranks=train, **kw)
             if cfg.use_sem_dice_loss:
-                loss_sem = loss_sem + L.dice_loss(flat_logits, flat_labels, flat_mask)
+                loss_sem = loss_sem + L.dice_loss(flat_logits, flat_labels, flat_mask,
+                                                  across_ranks=train)
             losses["loss_sem_seg"] = loss_sem
             flat_preds = sem_preds.reshape(-1)
-            all_accu = L.pixel_accuracy(flat_preds, flat_labels, flat_mask)
-            pixel_accu = L.pixel_accuracy(flat_preds, flat_labels, flat_mask & (flat_labels > 0))
+            all_accu = L.pixel_accuracy(flat_preds, flat_labels, flat_mask, across_ranks=train)
+            pixel_accu = L.pixel_accuracy(flat_preds, flat_labels, flat_mask & (flat_labels > 0),
+                                          across_ranks=train)
 
         # offset head
         with _running_stats(self.offset_bn, "offset_bn" in frozen_bn):
@@ -243,7 +252,8 @@ class GAPartNet(nn.Module):
             gt_offsets = batch.instance_regions[..., :3] - pt_xyz
             valid_inst = (batch.sem_labels > 0) & (batch.instance_labels >= 0) & point_mask
             dist, direction = L.offset_loss(
-                offset_preds.reshape(-1, 3), gt_offsets.reshape(-1, 3), valid_inst.reshape(-1)
+                offset_preds.reshape(-1, 3), gt_offsets.reshape(-1, 3), valid_inst.reshape(-1),
+                across_ranks=train,
             )
             losses["loss_offset_dist"] = dist * cfg.offset_loss_weight
             losses["loss_offset_dir"] = direction * cfg.offset_loss_weight
@@ -419,7 +429,8 @@ class GAPartNet(nn.Module):
             if ious is not None:
                 gt_scores = L.get_gt_scores(ious.amax(dim=-1), 0.75, 0.25)
                 losses["loss_prop_score"] = L.sigmoid_bce(
-                    score_logits.reshape(-1), gt_scores.reshape(-1), prop.proposal_mask.reshape(-1)
+                    score_logits.reshape(-1), gt_scores.reshape(-1), prop.proposal_mask.reshape(-1),
+                    across_ranks=train,
                 )
             out = dataclasses.replace(
                 out, score_logits=score_logits, score_preds=torch.sigmoid(score_logits.detach()),
@@ -461,6 +472,7 @@ class GAPartNet(nn.Module):
                 losses["loss_prop_npcs"] = L.npcs_loss(
                     npcs_preds.reshape(-1, 3), entry_gt_npcs.reshape(-1, 3),
                     entry_sym.reshape(-1), gpid.reshape(-1), npcs_valid.reshape(-1), b * p_cap,
+                    across_ranks=train,
                 )
             out = dataclasses.replace(out, npcs_preds=npcs_preds, npcs_valid=npcs_valid, **losses)
         return out

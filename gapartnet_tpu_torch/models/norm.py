@@ -6,12 +6,20 @@ differs from torch's default of 1e-5.  Normalization is over the last
 batch statistics are taken over the rows the mask marks valid (all rows
 without a mask).  In eval the running statistics normalize and the mask
 plays no part, as in the JAX module with train=False.
+
+Under data parallelism (parallel/dist.py) the training statistics are
+global, as the JAX module's are under a sharded jit (its norm.py:6-8): the
+masked sums and counts are summed over the ranks, differentiably, so every
+rank normalizes with, and moves its running statistics towards, the
+statistics of the whole global batch.
 """
 
 from typing import Optional
 
 import torch
 from torch import nn
+
+from gapartnet_tpu_torch.parallel.dist import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -37,19 +45,26 @@ class MaskedBatchNorm(nn.Module):
         else:
             c = x.shape[-1]
             xf = x.reshape(-1, c)
+            one = torch.ones((), device=x.device)
             if mask is None:
-                cnt = torch.tensor(float(xf.shape[0]), device=x.device)
-                mean = xf.mean(0)
-                var = (xf * xf).mean(0) - mean * mean
+                # the row count, sum x and sum x^2, over every rank in one call
+                rows = torch.full((1,), float(xf.shape[0]), device=x.device)
+                sums = all_reduce_sum(torch.cat([rows, xf.sum(0), (xf * xf).sum(0)]))
+                cnt = torch.maximum(sums[0].detach(), one)
+                mean = sums[1:c + 1] / cnt
+                var = sums[c + 1:] / cnt - mean * mean
             else:
+                # two passes, as the JAX module: the count and sum x w, then
+                # sum (x - mean)^2 w
                 w = mask.reshape(-1).to(x.dtype)
-                cnt = torch.maximum(w.sum(), torch.ones((), device=x.device))
-                mean = (xf * w[:, None]).sum(0) / cnt
-                var = ((xf - mean) ** 2 * w[:, None]).sum(0) / cnt
+                sums = all_reduce_sum(torch.cat([w.sum()[None], (xf * w[:, None]).sum(0)]))
+                cnt = torch.maximum(sums[0].detach(), one)
+                mean = sums[1:] / cnt
+                var = all_reduce_sum(((xf - mean) ** 2 * w[:, None]).sum(0)) / cnt
             # maximum with a tensor splits the gradient at a tie, as jnp.maximum
             var = torch.maximum(var, torch.zeros((), device=x.device))
             with torch.no_grad():
-                unbiased = var * cnt / torch.maximum(cnt - 1.0, torch.ones((), device=x.device))
+                unbiased = var * cnt / torch.maximum(cnt - 1.0, one)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         inv = torch.reciprocal(torch.sqrt(var + self.eps))

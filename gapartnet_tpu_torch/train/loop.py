@@ -11,6 +11,14 @@ exactly as they are: `adam` gives their parameters no update and no
 moments, the forward normalizes the backbone and offset_bn with their
 running statistics (the model's `frozen_bn`), and the running statistics
 of every frozen module are restored after the step.
+
+In a data-parallel run (parallel/dist.py) each rank steps on its own
+clouds: the forward's statistics and loss counts are global, the
+gradients are SUM-reduced over the ranks before Adam, and every rank draws
+the same jitter from its identically seeded generator, as the JAX step
+draws one key for the whole batch.  The metrics stay the rank's own: its
+loss (local sum over the global count) and its counter sums, which add up
+over the ranks to the global batch's.
 """
 
 from typing import Dict, Iterable, Optional, Tuple
@@ -19,6 +27,7 @@ import torch
 from torch import nn
 
 from gapartnet_tpu_torch.models.gapartnet import GAPartNet, ModelOutput
+from gapartnet_tpu_torch.parallel.dist import sum_gradients
 from gapartnet_tpu_torch.structures import PointCloudBatch
 
 
@@ -99,8 +108,9 @@ def train_step(
     cluster_offset_override: Optional[torch.Tensor] = None,
     freeze_prefixes: Tuple[str, ...] = (),
 ) -> Dict[str, torch.Tensor]:
-    """Forward (train mode), backward, one optimizer step; returns the
-    metrics as tensors on the model's device (nothing is synchronised).
+    """Forward (train mode), backward, the gradients summed over the ranks
+    of a data-parallel run, one optimizer step; returns the metrics as
+    tensors on the model's device (nothing is synchronised).
 
     The jitter is drawn from `generator` every step (`draw_jitter`).  The
     parameters of the `freeze_prefixes` modules get no gradient
@@ -121,6 +131,7 @@ def train_step(
     )
     if out.total_loss.requires_grad:
         out.total_loss.backward()
+    sum_gradients(p for group in optimizer.param_groups for p in group["params"])
     optimizer_step(optimizer)
     with torch.no_grad():
         for buf, value in pinned:

@@ -16,11 +16,24 @@ Metrics stay on the device as tensors and come to the host once per epoch
 Checkpoints are `torch.save` files (model and optimizer state_dicts, step,
 epoch, gstep and the jitter generator's state), read with
 `torch.load(weights_only=True)`.  Not ported: the test-time renders
-(`trainer.visualize`; ROADMAP Queue 1 item 14) and the multi-process
-paths (sharded datasets, the cross-process metric mean; item 12).
+(`trainer.visualize`; ROADMAP Queue 1 item 14).
+
+Data parallel (one process per card under `torchrun`, parallel/dist.py),
+as the JAX trainer runs over processes: every split's files are sharded
+round-robin over the ranks; each rank scans its own shard for the
+capacities and the ranks take the elementwise maximum, so all build the
+same model; every rank takes the same number of train steps per epoch,
+the fewest any rank's shard fills (a rank with one batch more would wait
+forever in its first collective); the epoch's metrics are summed over the
+ranks once per epoch (each rank's loss is its part of the global loss,
+its counters its clouds' sums); each rank evaluates its own shard and the
+eval metrics are the NaN-mean over the ranks on the fixed key set of
+`eval_metric_names`; only rank 0 writes the metrics log and the
+checkpoints.
 """
 
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -34,10 +47,11 @@ import torch
 
 from gapartnet_tpu_torch.config import eval_capacity_config
 from gapartnet_tpu_torch.constants import PART_ID2NAME
-from gapartnet_tpu_torch.data.loader import GAPartNetDataset, collate
+from gapartnet_tpu_torch.data.loader import GAPartNetDataset, collate, shard_files
 from gapartnet_tpu_torch.entry import make_model, use_fp32_math
 from gapartnet_tpu_torch.eval.ap import APEvaluator, _proposal_pred_classes, select_eval_proposals
 from gapartnet_tpu_torch.ops.segment import segment_sum
+from gapartnet_tpu_torch.parallel import dist as pdist
 from gapartnet_tpu_torch.structures import PointCloudBatch
 from gapartnet_tpu_torch.train.config import Config
 from gapartnet_tpu_torch.train.loop import adam, eval_step, stage_flags, train_step
@@ -74,12 +88,15 @@ def run_name(cfg: Config) -> str:
 
 class MetricLogger:
     """Appends one JSON line per `log` call (and logs to wandb when asked
-    and importable)."""
+    and importable); in a data-parallel run rank 0 alone writes, and every
+    rank waits for it."""
 
     def __init__(self, log_file: str, use_wandb: bool = False, run_name: str = ""):
         self.path = Path(log_file)
-        self.path.parent.mkdir(parents=True, exist_ok=True)
         self.wandb = None
+        if not pdist.is_primary():
+            return
+        self.path.parent.mkdir(parents=True, exist_ok=True)
         if use_wandb:
             try:
                 import wandb
@@ -90,11 +107,13 @@ class MetricLogger:
                 self.wandb = None
 
     def log(self, metrics: Dict[str, float], step: int):
-        rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
-        with open(self.path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
-        if self.wandb is not None:
-            self.wandb.log(metrics, step=step)
+        if pdist.is_primary():
+            rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+            if self.wandb is not None:
+                self.wandb.log(metrics, step=step)
+        pdist.barrier()
 
 
 def host_copy(tree):
@@ -253,7 +272,8 @@ class CkptManager:
     gapartnet.yaml:77-84), later epochs winning ties, plus `last`, swapped
     in atomically after every save.  The monitor's last name component is
     part of each file name, so scores of different monitors are never
-    compared by name."""
+    compared by name.  In a data-parallel run rank 0 alone writes, and
+    every rank waits for it."""
 
     ckpt_dir: str
     save_top_k: int = 5
@@ -262,28 +282,31 @@ class CkptManager:
     kept: List = dataclasses.field(default_factory=list)  # (score, epoch, path)
 
     def __post_init__(self):
-        Path(self.ckpt_dir).mkdir(parents=True, exist_ok=True)
+        if pdist.is_primary():
+            Path(self.ckpt_dir).mkdir(parents=True, exist_ok=True)
 
     def save(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer, epoch: int,
              score: float, generator: Optional[torch.Generator] = None, gstep: int = 0,
              step: int = 0) -> str:
         slug = self.monitor.rsplit("/", 1)[-1]
         path = os.path.abspath(os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}_{slug}_{score:.2f}"))
-        payload = dict(model=cpu_tree(model.state_dict()),
-                       optimizer=cpu_tree(optimizer.state_dict()),
-                       step=int(step), epoch=int(epoch), gstep=int(gstep))
-        if generator is not None:
-            payload["generator"] = generator.get_state()
-        _save(payload, path, path + ".tmp")
-        self.kept.append((score, epoch, path))
-        self.kept.sort(key=lambda t: (-t[0], -t[1]))
-        while len(self.kept) > self.save_top_k:
-            worst = self.kept.pop()[-1]
-            if os.path.exists(worst):
-                os.remove(worst)
-        if self.save_last:
-            last = os.path.abspath(os.path.join(self.ckpt_dir, "last"))
-            _save(payload, last, last + f".tmp_{epoch:03d}")
+        if pdist.is_primary():
+            payload = dict(model=cpu_tree(model.state_dict()),
+                           optimizer=cpu_tree(optimizer.state_dict()),
+                           step=int(step), epoch=int(epoch), gstep=int(gstep))
+            if generator is not None:
+                payload["generator"] = generator.get_state()
+            _save(payload, path, path + ".tmp")
+            self.kept.append((score, epoch, path))
+            self.kept.sort(key=lambda t: (-t[0], -t[1]))
+            while len(self.kept) > self.save_top_k:
+                worst = self.kept.pop()[-1]
+                if os.path.exists(worst):
+                    os.remove(worst)
+            if self.save_last:
+                last = os.path.abspath(os.path.join(self.ckpt_dir, "last"))
+                _save(payload, last, last + f".tmp_{epoch:03d}")
+        pdist.barrier()
         return path
 
     @staticmethod
@@ -303,9 +326,17 @@ def load_warm_start(model: torch.nn.Module, ckpt_path: str) -> List[str]:
     return list(missing)
 
 
-def build_datasets(cfg: Config, stage: str) -> Dict[str, GAPartNetDataset]:
+def build_datasets(cfg: Config, stage: str, process_index: Optional[int] = None,
+                   process_count: Optional[int] = None) -> Dict[str, GAPartNetDataset]:
     """The split datasets of `stage` ("fit" adds the augmenting train
-    split), one process."""
+    split).  With `process_count` > 1 (by default this process's rank and
+    the world size) every split's file list is sharded round-robin
+    (`shard_files`, the reference's DistributedShardingFilter), as the JAX
+    trainer's build_datasets does."""
+    if process_index is None:
+        process_index = pdist.rank()
+    if process_count is None:
+        process_count = pdist.world_size()
     d = cfg.data
     root = Path(d.root_dir)
     common = dict(max_points=d.max_points, max_instances=d.max_instances,
@@ -323,6 +354,9 @@ def build_datasets(cfg: Config, stage: str) -> Dict[str, GAPartNetDataset]:
                        ("test_inter", d.inter_few_shot)):
         datasets[split] = GAPartNetDataset(root / split / "pth", shuffle=False,
                                            augmentation=False, few_shot=few, **common)
+    if process_count > 1:
+        for ds in datasets.values():
+            ds.paths = shard_files(ds.paths, process_index, process_count)
     return datasets
 
 
@@ -421,7 +455,13 @@ def evaluate_splits(model, cfg: Config, datasets, epoch: int, logger: MetricLogg
     the JAX trainer's (model.py:694-805, 859-1049): AP@50, mAP, accuracies,
     mIoU over one confusion matrix per split, per-class recalls and their
     macro / min / balance-gated monitors, per-class AP@50, counters, and
-    the monitor means over test_intra and test_inter."""
+    the monitor means over test_intra and test_inter.
+
+    In a data-parallel run each rank evaluates its own shard, with no
+    collective inside the eval forward; then every rank enters one
+    NaN-mean over the ranks of the vector of `eval_metric_names` (a name
+    this rank did not log, e.g. of a split its shard left empty, rides as
+    NaN), the JAX trainer's rule (trainer.py:790-807)."""
     _check_supported(cfg)
     if step_cache is None:
         step_cache = {}
@@ -506,13 +546,20 @@ def evaluate_splits(model, cfg: Config, datasets, epoch: int, logger: MetricLogg
                           ("imou", "miou"), ("AP@50", "ap50"), ("mAP", "mAP")):
             metrics[f"monitor_metrics/mean_{name}"] = (intra[key] + inter[key]) / 2 * 100
 
+    if pdist.is_initialized():
+        keys = eval_metric_names(cfg, do_instance)
+        means = pdist.nanmean_over_processes([metrics.get(k, np.nan) for k in keys])
+        metrics = {k: float(v) for k, v in zip(keys, means) if not np.isnan(v)}
     logger.log(metrics, step)
     return metrics.get(cfg.trainer.monitor, 0.0), metrics
 
 
 def _apply_auto_capacity(cfg: Config, datasets) -> None:
     """Size cfg.model's level capacities, grid extent and hash-CCL tables
-    from the datasets (data/capacity.py) when `data.auto_capacity` is on."""
+    from the datasets (data/capacity.py) when `data.auto_capacity` is on.
+    In a data-parallel run each rank scans its own shard, then every value
+    is the maximum over the ranks, so that all ranks build the same
+    model."""
     if not cfg.data.auto_capacity or cfg.model.backbone_type != "SparseUNet":
         return
     from gapartnet_tpu_torch.data.capacity import scan_dataset_shapes, scan_hash_capacities
@@ -522,6 +569,12 @@ def _apply_auto_capacity(cfg: Config, datasets) -> None:
                                        len(cfg.model.level_capacity_divisors), cfg.model.max_points)
     node_cap, cand_cap, degree = scan_hash_capacities(sets, cfg.model.ball_query_radius,
                                                       max_points=cfg.model.max_points)
+    if pdist.is_initialized():
+        vals = torch.tensor([*caps, *extent, node_cap, cand_cap, degree], dtype=torch.int64,
+                            device=pdist.collective_device())
+        vals = [int(v) for v in pdist.all_reduce_(vals, "max").tolist()]
+        caps, extent = tuple(vals[:len(caps)]), tuple(vals[len(caps):len(caps) + 3])
+        node_cap, cand_cap, degree = vals[len(caps) + 3:]
     cfg.model = dataclasses.replace(
         cfg.model, level_capacities=caps, input_grid_extent=extent,
         hash_node_capacity=node_cap, hash_cand_cap=cand_cap, hash_max_degree=degree,
@@ -586,25 +639,31 @@ def fit(cfg: Config, device="cuda") -> TrainState:
 
     ckpts = CkptManager(cfg.trainer.ckpt_dir, cfg.trainer.save_top_k, monitor=cfg.trainer.monitor)
     eval_cache: dict = {}
+    # the steps per epoch: the fewest full batches of any rank's shard
+    steps_per_epoch = int(pdist.all_reduce_(torch.tensor(
+        [len(datasets["train"]) // cfg.data.train_batch_size],
+        device=pdist.collective_device()), "min")[0])
     for epoch in range(start_epoch, cfg.trainer.max_epochs):
         flags = stage_flags(epoch, cfg.trainer.training_schedule)
         t0 = time.time()
         losses = []
-        for batch in Prefetcher(
-            _iter_batches(datasets["train"], cfg.data.train_batch_size, drop_last=True,
-                          shuffle_seed=cfg.trainer.seed + epoch, workers=cfg.data.num_workers),
-            transform=lambda raw: PointCloudBatch.from_numpy(raw, device),
-        ):
+        batches = _iter_batches(datasets["train"], cfg.data.train_batch_size, drop_last=True,
+                                shuffle_seed=cfg.trainer.seed + epoch, workers=cfg.data.num_workers)
+        for batch in Prefetcher(itertools.islice(batches, steps_per_epoch),
+                                transform=lambda raw: PointCloudBatch.from_numpy(raw, device)):
             losses.append(train_step(model, optimizer, batch, generator, **flags,
                                       freeze_prefixes=freeze))
             step += 1
             gstep += 1
         if losses:
-            losses = host_copy(losses)
+            # one (metric, step) table, summed over the ranks in one call
+            names = sorted(losses[0])       # the JAX line's order (a pytree's keys)
+            table = host_copy(pdist.all_reduce_(
+                torch.stack([torch.stack([m[k] for m in losses]) for k in names])))
             mean = {
                 ("train_" + k if not k.startswith("loss") else f"train_loss/{k.split('/')[-1]}"):
-                    float(np.mean([float(x[k]) for x in losses]))
-                for k in sorted(losses[0])      # the JAX line's order (a pytree's keys)
+                    float(np.mean(row.astype(np.float64)))
+                for k, row in zip(names, table)
             }
             mean["epoch"] = epoch
             mean["epoch_time_s"] = time.time() - t0
@@ -638,6 +697,7 @@ def test(cfg: Config, device="cuda") -> Dict[str, float]:
         load_warm_start(model, cfg.trainer.resume_ckpt)
     _, metrics = evaluate_splits(model, cfg, datasets, 0, logger, 0, do_instance=True,
                                  device=device)
-    for k in sorted(metrics):
-        print(f"{k}: {metrics[k]:.2f}")
+    if pdist.is_primary():
+        for k in sorted(metrics):
+            print(f"{k}: {metrics[k]:.2f}")
     return metrics

@@ -55,6 +55,25 @@ def test_trainer_slice_modules_exist():
         assert (PORT / name).exists(), name
 
 
+def test_data_parallel_slice_modules_exist():
+    for name in ("parallel/__init__.py", "parallel/dist.py"):
+        assert (PORT / name).exists(), name
+
+
+def test_parallel_imports_without_jax():
+    """gapartnet_tpu_torch.parallel on its own: torch and the standard
+    library only, nothing of the JAX package."""
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'yaml'):\n    sys.modules[m] = None\n"
+            "import gapartnet_tpu_torch.parallel.dist as d\n"
+            "assert d.world_size() == 1 and d.rank() == 0 and d.is_primary()\n"
+            "leaked = [k for k in sys.modules if k.split('.')[0] == 'gapartnet_tpu']\n"
+            "assert not leaked, leaked\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
 def test_train_modules_import_without_jax_or_yaml():
     """Each train/*.py module on its own, PyYAML blocked too (the card's
     machine has none)."""
