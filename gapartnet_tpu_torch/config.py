@@ -55,7 +55,8 @@ class GAPartNetConfig:
     # TPU-only probe variant selector; the port always probes sorted keys
     hash_probe_impl: str = "auto"
     offset_loss_weight: float = 1.0
-    # conv compute precision; the port's kernel computes float32 only
+    # conv compute precision: "float32", or "bfloat16" (operands rounded to
+    # bf16, fp32 accumulation; the JAX bench's configuration)
     conv_compute_dtype: str = "float32"
     # TPU-only: rematerialization in backward
     remat_blocks: bool = False

@@ -16,12 +16,17 @@ Geometry (GridHierarchy) is built once per forward outside the modules.
 Every MaskedBatchNorm follows the module's train / eval mode
 (`nn.Module.train()`), which carries the JAX package's `train` flag.
 
+`compute_dtype` (None or torch.bfloat16) reaches the submanifold convs
+only, as in the JAX package: with bf16 they round their operands to bf16
+and accumulate in fp32 (ops/subm_conv.py); the shortcut, strided and
+inverse convs and every BatchNorm stay float32.
+
 Parameters keep the JAX package's names and layouts: submanifold kernels
 (27, Cin, Cout) and strided kernels (8, Cin, Cout), tap-major, x-major with
 dz fastest; pointwise kernels (Cin, Cout).
 """
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -43,25 +48,28 @@ def _kernel(*shape: int) -> nn.Parameter:
 class SubMConv(nn.Module):
     """Submanifold conv (k=3) on one grid level; weights (27, Cin, Cout)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel = _kernel(27, in_channels, out_channels)
+        self.compute_dtype = compute_dtype
 
     def forward(self, features: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-        return subm_conv(features, nbr, self.kernel)
+        return subm_conv(features, nbr, self.kernel, compute_dtype=self.compute_dtype)
 
 
 class ResBlock(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if in_channels != out_channels:
             self.shortcut_kernel = _kernel(in_channels, out_channels)
             self.shortcut_bn = MaskedBatchNorm(out_channels)
         else:
             self.shortcut_kernel = None
-        self.conv1 = SubMConv(in_channels, out_channels)
+        self.conv1 = SubMConv(in_channels, out_channels, compute_dtype)
         self.bn1 = MaskedBatchNorm(out_channels)
-        self.conv2 = SubMConv(out_channels, out_channels)
+        self.conv2 = SubMConv(out_channels, out_channels, compute_dtype)
         self.bn2 = MaskedBatchNorm(out_channels)
 
     def forward(self, features, nbr, mask):
@@ -77,24 +85,25 @@ class ResBlock(nn.Module):
 class UBlock(nn.Module):
     """Recursive U over the prebuilt GridHierarchy starting at `level`."""
 
-    def __init__(self, channels: Sequence[int], block_repeat: int, level: int = 0):
+    def __init__(self, channels: Sequence[int], block_repeat: int, level: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.level = level
         self.block_repeat = block_repeat
         c0 = channels[0]
         for r in range(block_repeat):
-            self.add_module(f"enc{r}", ResBlock(c0, c0))
+            self.add_module(f"enc{r}", ResBlock(c0, c0, compute_dtype))
         self.has_child = len(channels) > 1
         if self.has_child:
             c1 = channels[1]
             self.down_kernel = _kernel(8, c0, c1)
             self.down_bn = MaskedBatchNorm(c1)
-            self.ublock = UBlock(channels[1:], block_repeat, level + 1)
+            self.ublock = UBlock(channels[1:], block_repeat, level + 1, compute_dtype)
             self.up_kernel = _kernel(8, c1, c0)
             self.up_bn = MaskedBatchNorm(c0)
-            self.add_module("dec0", ResBlock(2 * c0, c0))
+            self.add_module("dec0", ResBlock(2 * c0, c0, compute_dtype))
             for r in range(1, block_repeat):
-                self.add_module(f"dec{r}", ResBlock(c0, c0))
+                self.add_module(f"dec{r}", ResBlock(c0, c0, compute_dtype))
 
     def forward(self, features: torch.Tensor, hierarchy: GridHierarchy) -> torch.Tensor:
         li = self.level
@@ -123,11 +132,13 @@ class SparseUNet(nn.Module):
     """Stem + UBlock.  Returns (B, V0, channels[0]) voxel features."""
 
     def __init__(self, in_channels: int, channels: Sequence[int], block_repeat: int = 2,
-                 without_stem: bool = False):
+                 without_stem: bool = False, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.stem_conv = None if without_stem else SubMConv(in_channels, channels[0])
+        self.compute_dtype = compute_dtype
+        self.stem_conv = (None if without_stem
+                          else SubMConv(in_channels, channels[0], compute_dtype))
         self.stem_bn = MaskedBatchNorm(channels[0])
-        self.ublock = UBlock(tuple(channels), block_repeat, 0)
+        self.ublock = UBlock(tuple(channels), block_repeat, 0, compute_dtype)
 
     def forward(self, features: torch.Tensor, hierarchy: GridHierarchy) -> torch.Tensor:
         lv0 = hierarchy.levels[0]

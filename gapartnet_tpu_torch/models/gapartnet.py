@@ -16,6 +16,19 @@ statistics in a training forward, as the JAX model's `frozen_bn` does: it
 reaches the backbone and `offset_bn` only, so the proposal UNets of a frozen
 score/NPCS branch keep using batch statistics.
 
+`conv_compute_dtype="bfloat16"` runs the backbone's and both proposal
+UNets' convs on operands rounded to bf16 with fp32 accumulation, as the
+JAX package does (models/gapartnet.py:312-318, 627-710): the sparse convs
+through the bf16 kernels (ops/subm_conv.py), the dense ones in bf16; the
+dense proposal grids are stored in bf16, and at eval the dense UNets keep
+their activations in bf16 (`act_dtype`), the pooled ScoreNet features and
+the gathered NPCS features widened to f32 for the heads.
+
+Under GAPARTNET_CHECKS "host" or "jit" (utils/invariants.py) a clustering
+forward asserts every capacity counter zero, where the JAX model checks
+them (models/gapartnet.py:615-618); under "off", the default, it does not
+read them.
+
 A training forward in a data-parallel run (parallel/dist.py) takes its
 BatchNorm statistics and the counts of its loss and accuracy means over
 every rank; its collectives follow from the stage flags and the config
@@ -51,6 +64,7 @@ from gapartnet_tpu_torch.ops.segment import segment_max, segment_mean, segment_m
 from gapartnet_tpu_torch.ops.sparse_conv import GridHierarchy, build_hierarchy
 from gapartnet_tpu_torch.ops.voxelize import voxelize_single
 from gapartnet_tpu_torch.structures import PointCloudBatch
+from gapartnet_tpu_torch.utils import invariants as inv
 
 
 @dataclasses.dataclass
@@ -107,6 +121,11 @@ def prepare_input_grid(points: torch.Tensor, point_mask: torch.Tensor, cfg: GAPa
     return tuple(torch.stack(list(f)) for f in zip(*outs))
 
 
+def compute_dtype(cfg: GAPartNetConfig) -> Optional[torch.dtype]:
+    """The convs' compute dtype of `cfg`: torch.bfloat16 or None (float32)."""
+    return torch.bfloat16 if cfg.conv_compute_dtype == "bfloat16" else None
+
+
 @contextlib.contextmanager
 def _running_stats(module: nn.Module, frozen: bool):
     """Within the block, `module`'s BatchNorms use (and keep) their running
@@ -142,26 +161,29 @@ class GAPartNet(nn.Module):
             raise NotImplementedError(f"clustering {cfg.clustering_impl} is not ported")
         if cfg.proposal_conv_impl not in ("auto", "dense", "sparse"):
             raise ValueError(f"unknown proposal_conv_impl {cfg.proposal_conv_impl}")
-        if cfg.conv_compute_dtype != "float32":
-            raise NotImplementedError("only float32 conv compute is ported")
+        if cfg.conv_compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown conv_compute_dtype {cfg.conv_compute_dtype}")
         self.cfg = cfg
         c = cfg.num_part_classes
         fea = cfg.channels[0]
-        self.backbone = SparseUNet(cfg.in_channels, cfg.channels, cfg.block_repeat)
+        cd = compute_dtype(cfg)
+        self.backbone = SparseUNet(cfg.in_channels, cfg.channels, cfg.block_repeat,
+                                   compute_dtype=cd)
         self.sem_seg_head = nn.Linear(fea, c)
         self.offset_mlp0 = nn.Linear(fea, fea)
         self.offset_bn = MaskedBatchNorm(fea)
         self.offset_mlp1 = nn.Linear(fea, 3)
-        self.score_unet = ProposalUNet(cfg.channels[:2], cfg.block_repeat)
+        self.score_unet = ProposalUNet(cfg.channels[:2], cfg.block_repeat, compute_dtype=cd)
         self.score_head = nn.Linear(fea, c - 1)
-        self.npcs_unet = ProposalUNet(cfg.channels[:2], cfg.block_repeat)
+        self.npcs_unet = ProposalUNet(cfg.channels[:2], cfg.block_repeat, compute_dtype=cd)
         self.npcs_head = nn.Linear(fea, 3 * (c - 1))
 
     def with_config(self, cfg: GAPartNetConfig) -> "GAPartNet":
         """A GAPartNet that runs with `cfg` (other capacities, e.g. the eval
         ones of config.eval_capacity_config) on this model's own submodules,
         so on its parameters and buffers, not on a copy."""
-        for f in ("in_channels", "num_part_classes", "backbone_type", "channels", "block_repeat"):
+        for f in ("in_channels", "num_part_classes", "backbone_type", "channels", "block_repeat",
+                  "conv_compute_dtype"):
             if getattr(cfg, f) != getattr(self.cfg, f):
                 raise ValueError(f"with_config: {f} {getattr(cfg, f)} differs from the model's "
                                  f"{getattr(self.cfg, f)}")
@@ -332,7 +354,9 @@ class GAPartNet(nn.Module):
             )
             occ_flat = torch.zeros((nsites + 1,), dtype=torch.bool, device=dev)
             occ_flat[torch.where(site_flat >= 0, site_flat, torch.full_like(site_flat, nsites)).long()] = True
-            grid_feats = grid_flat.reshape(gcap, s, s, s, fea)
+            # stored in the conv compute dtype, as the JAX model stores it
+            grid_feats = grid_flat.to(compute_dtype(cfg) or grid_flat.dtype).reshape(
+                gcap, s, s, s, fea)
             occ = occ_flat[:nsites].reshape(gcap, s, s, s)
             counters["proposal_voxels_dropped"] = torch.zeros((b,), dtype=i32, device=dev)
             out = dataclasses.replace(out, entry_site=entry_site)
@@ -402,19 +426,24 @@ class GAPartNet(nn.Module):
         counters["dropped_proposals"] = prop.num_dropped
         counters["ccl_node_overflow"] = prop.ccl_overflow
         counters["ccl_cand_truncated"] = prop.ccl_cand_truncated
+        if inv.mode() != "off":
+            for cname, cval in counters.items():
+                inv.check_traced(torch.all(cval == 0), "capacity overflow in " + cname)
         out = dataclasses.replace(
             out, proposals=prop, proposal_sem=proposal_sem, ious=ious, counters=counters,
         )
 
         c0 = cfg.channels[0]
         entry_vox_ok = None if dense_mode else prop.entry_mask & (entry_voxel_id >= 0)
+        # the dense UNets keep bf16 activations at eval (AD needs f32)
+        act_dtype = None if train else compute_dtype(cfg)
         if do_score:
             if dense_mode:
-                sfeat = self.score_unet.dense(grid_feats, occ)           # (G, S, S, S, C0)
+                sfeat = self.score_unet.dense(grid_feats, occ, act_dtype)  # (G, S, S, S, C0)
                 neg = torch.tensor(float("-inf"), dtype=sfeat.dtype, device=dev)
                 pooled_g = torch.where(occ[..., None], sfeat, neg).reshape(-1, s3, c0).amax(dim=1)
                 pooled = _gather_rows(pooled_g[None], g_of.reshape(1, -1), (g_of >= 0).reshape(1, -1))
-                pooled = pooled.reshape(b, p_cap, c0)
+                pooled = pooled.reshape(b, p_cap, c0).float()
             else:
                 sfeat = self.score_unet(prop_vfeats, prop_hier)          # (B, Vp, C0)
                 entry_sf = _gather_rows(sfeat, entry_voxel_id, entry_vox_ok)
@@ -439,10 +468,10 @@ class GAPartNet(nn.Module):
 
         if do_npcs:
             if dense_mode:
-                nfeat = self.npcs_unet.dense(grid_feats, occ)            # (G, S, S, S, C0)
+                nfeat = self.npcs_unet.dense(grid_feats, occ, act_dtype)  # (G, S, S, S, C0)
                 entry_nf = _gather_rows(
                     nfeat.reshape(1, -1, c0), entry_site.reshape(1, -1), entry_site.reshape(1, -1) >= 0
-                ).reshape(b, -1, c0)
+                ).reshape(b, -1, c0).float()
                 entry_npcs = self.npcs_head(entry_nf)
             else:
                 nfeat = self.npcs_unet(prop_vfeats, prop_hier)           # (B, Vp, C0)

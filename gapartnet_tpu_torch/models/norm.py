@@ -5,7 +5,9 @@ differs from torch's default of 1e-5.  Normalization is over the last
 (channel) axis of (..., C).  Padded rows carry no data, so in training the
 batch statistics are taken over the rows the mask marks valid (all rows
 without a mask).  In eval the running statistics normalize and the mask
-plays no part, as in the JAX module with train=False.
+plays no part, as in the JAX module with train=False.  A bf16 input (the
+dense proposal grids at bf16) meets the float32 mask, statistics and
+parameters in float32, so the output is float32, as in the JAX module.
 
 Under data parallelism (parallel/dist.py) the training statistics are
 global, as the JAX module's are under a sharded jit (its norm.py:6-8): the
@@ -55,8 +57,9 @@ class MaskedBatchNorm(nn.Module):
                 var = sums[c + 1:] / cnt - mean * mean
             else:
                 # two passes, as the JAX module: the count and sum x w, then
-                # sum (x - mean)^2 w
-                w = mask.reshape(-1).to(x.dtype)
+                # sum (x - mean)^2 w; the f32 mask promotes a bf16 x to f32,
+                # as the JAX module's `mask.astype(float32)` does
+                w = mask.reshape(-1).to(torch.promote_types(x.dtype, torch.float32))
                 sums = all_reduce_sum(torch.cat([w.sum()[None], (xf * w[:, None]).sum(0)]))
                 cnt = torch.maximum(sums[0].detach(), one)
                 mean = sums[1:] / cnt

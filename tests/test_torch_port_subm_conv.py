@@ -333,3 +333,55 @@ def test_kernel_gradients_on_card(cin, cout, v, pattern):
     assert torch.equal(subm_conv_wgrad(x, nbr, g), tw.grad)
     assert torch.equal(subm_conv_dgrad(g, nbr, w), tx.grad)
     assert torch.equal(subm_conv_wgrad(x, nbr, g), subm_conv_wgrad(x, nbr, g))
+
+
+def _bf16_close(got: torch.Tensor, want: torch.Tensor, rtol: float) -> None:
+    """A result rounded to bf16 against its plain version: within one bf16
+    ulp of the value plus rtol of max|want| (the fp32 sums before the
+    rounding differ in order)."""
+    assert torch.equal(got, got.to(torch.bfloat16).float()), "not rounded to bf16"
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+    err = (got - want).abs() - ulp
+    assert float(err.max()) <= rtol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,v,pattern", [
+    (5, 7, 33, "random"), (6, 16, 1000, "random"), (16, 48, 777, "random"),
+    (40, 192, 300, "random"), (224, 224, 130, "random"), (16, 192, 1, "random"),
+    (16, 16, 2500, "holes"), (224, 7, 300, "holes"), (6, 224, 129, "holes"),
+    (40, 48, 700, "holes"), (5, 224, 1, "random"),
+])
+def test_bf16_kernels_match_reference_on_card(cin, cout, v, pattern):
+    """The bf16 forward, dgrad and wgrad kernels against their plain
+    versions, through the autograd function: Cin 5 and 6 (rows padded to
+    8), 16 (one 16-channel chunk), 40 (a 32-channel chunk and a short one),
+    224 (seven); Cout 7 to 224 (one to four channel tiles, and the same as
+    the dgrad's K); V = 1, V not a multiple of the 128-voxel tile, an
+    absent tap and an empty tile ("holes").  Forward within 1e-4 of scale
+    (fp32 sums of exact products in another order); dgrad and wgrad,
+    rounded to bf16, within one bf16 ulp plus 1e-4 (dgrad) or 1e-3 (wgrad,
+    sums over B * V rows) of scale.  No fp32 kernel runs; every kernel is
+    bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gapartnet_tpu_torch.ops import subm_conv as sc
+
+    x, w, g, nbr = _card_case(cin, cout, v, pattern, cin * 1000 + cout + 7)
+    before = dict(sc.LAUNCHES)
+    tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = sc.subm_conv(tx, nbr, tw, compute_dtype=torch.bfloat16)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launched = {k: sc.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"fwd": 0, "dgrad": 0, "wgrad": 0,
+                        "fwd_bf16": 1, "dgrad_bf16": 1, "wgrad_bf16": 1}
+    want = sc.subm_conv_bf16_reference(x, nbr, w)
+    assert float((out.detach() - want).abs().max()) <= TOL * float(want.abs().max())
+    _bf16_close(tx.grad, sc.subm_conv_dgrad_bf16_reference(g, nbr, w), 1e-4)
+    _bf16_close(tw.grad, sc.subm_conv_wgrad_bf16_reference(x, nbr, g), 1e-3)
+    with torch.no_grad():
+        assert torch.equal(sc.subm_conv_forward_bf16(x, nbr, w), out)
+    assert torch.equal(sc.subm_conv_dgrad_bf16(g, nbr, w), tx.grad)
+    assert torch.equal(sc.subm_conv_wgrad_bf16(x, nbr, g), tw.grad)
+    assert torch.equal(sc.subm_conv_wgrad_bf16(x, nbr, g), sc.subm_conv_wgrad_bf16(x, nbr, g))
