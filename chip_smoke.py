@@ -119,11 +119,14 @@ source, in parallel), then:
      (GAPartNetConfig(conv_compute_dtype="bfloat16")), the seventh slice's
      main path: the bf16 forward, dgrad and wgrad kernels
      (csrc/subm_conv_bf16.cu, csrc/subm_conv_wgrad_bf16.cu; SASS must hold
-     HMMA.16816.F32.BF16, checked in phase 1) against their plain versions
-     at every backbone shape of bench_cloud_setup and every training shape
-     of train_setup at bf16, each twice and bitwise equal, timed (CUDA
-     events, profiler device time, plain version) beside their bound at the
-     bf16 tensor-core peak and the HBM rate; the bare forward, 5 warm-ups
+     wgmma, HGMMA, checked in phase 1) against their plain versions at every
+     backbone shape of bench_cloud_setup and every training shape of
+     train_setup at bf16, each twice and bitwise equal, each call one kernel
+     launch or two where its plan splits taps or chunks rows (profiler: no
+     operand copy), timed (CUDA events, profiler device time, plain
+     version) beside their bound at the bf16 tensor-core peak and the HBM
+     rate, with the bytes the call reads (fp32 rows, no copy) printed
+     beside the bound's bf16 bytes; the bare forward, 5 warm-ups
      and 50 timed (53 fwd_bf16 launches each and no fp32 subm-conv launch,
      zero counters, finite outputs, a profile with the cuDNN bf16 rows),
      printed beside phase 3's fp32 median, then 20 fp32 and 20 bf16
@@ -148,9 +151,11 @@ To compare two versions of the kernels on one card, in one call:
     python3 chip_smoke.py --kernels-only --port-root <other checkout>
     python3 chip_smoke.py --kernels-only
 
-runs phases 1, 2 and the kernel half of 5 on that checkout's package and
-prints the kernel line (launches null) and the nvidia-smi line (no phase 10
-or 11).
+runs phases 1, 2 and the kernel half of 5 on that checkout's package, the
+bf16 kernels at the bare forward's and the train step's shapes (phase 11a),
+prints device and call ms per B = 8 step and per B = 1 forward of all six
+kernels, then the kernel line (launches null) and the nvidia-smi line (no
+phase 10 or 11).
 """
 
 import contextlib
@@ -175,15 +180,20 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 # the bf16 kernels: one bf16 mma per product, at the dense bf16 peak
 PEAK_BF16_FLOPS = 989e12
-# the kernels of each wrapper, as torch.profiler names them
+# the kernels of each wrapper, as torch.profiler names them (the bf16 ones
+# also by their names before the wgmma redesign, so that --kernels-only
+# --port-root times an older checkout's kernels too)
 KERNEL_NAMES = {"fwd": ("subm_conv_fwd_kernel", "sum_splits_kernel"),
                 "dgrad": ("subm_conv_fwd_kernel", "sum_splits_kernel"),
                 "wgrad": ("subm_conv_wgrad_kernel", "sum_chunks_kernel"),
-                "fwd_bf16": ("subm_conv_bf16_fwd_kernel", "sum_splits_bf16_kernel"),
-                "dgrad_bf16": ("subm_conv_bf16_fwd_kernel", "sum_splits_bf16_kernel"),
-                "wgrad_bf16": ("subm_conv_wgrad_bf16_kernel", "sum_chunks_bf16_kernel")}
-# HMMA.16816.F32.BF16: mma.sync m16n8k16 on bf16 operands (the bf16 kernels)
-BF16_KERNELS = ("subm_conv_bf16_fwd_kernel", "subm_conv_wgrad_bf16_kernel")
+                "fwd_bf16": ("subm_conv_bf16_wgmma_kernel", "subm_conv_bf16_fwd_kernel",
+                             "sum_splits_bf16_kernel"),
+                "dgrad_bf16": ("subm_conv_bf16_wgmma_kernel", "subm_conv_bf16_fwd_kernel",
+                               "sum_splits_bf16_kernel"),
+                "wgrad_bf16": ("subm_conv_wgrad_bf16_wgmma_kernel", "subm_conv_wgrad_bf16_kernel",
+                               "sum_chunks_bf16_kernel")}
+# the bf16 conv kernels: wgmma (HGMMA in SASS) on bf16 operands
+BF16_KERNELS = ("subm_conv_bf16_wgmma_kernel", "subm_conv_wgrad_bf16_wgmma_kernel")
 SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UBLKCP", "HMMA.16816.F32.BF16")
 TIMED_LAUNCHES = 20
 PROFILE_WINDOWS = 3
@@ -394,6 +404,10 @@ def _fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
+def _fmt_count(n) -> str:
+    return "not measured" if n is None else f"{n:g}"
+
+
 def sass_counts(lib: Path):
     """{kernel<template args>: {op: count}} of the SASS_OPS instructions in
     a built library (`cuobjdump -sass`)."""
@@ -407,7 +421,8 @@ def sass_counts(lib: Path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             kernel = re.search(r"(subm_conv_fwd_kernel|subm_conv_wgrad_kernel|sum_splits_kernel|"
-                               r"sum_chunks_kernel|subm_conv_bf16_fwd_kernel|"
+                               r"sum_chunks_kernel|subm_conv_bf16_wgmma_kernel|"
+                               r"subm_conv_wgrad_bf16_wgmma_kernel|subm_conv_bf16_fwd_kernel|"
                                r"subm_conv_wgrad_bf16_kernel|sum_splits_bf16_kernel|"
                                r"sum_chunks_bf16_kernel)", m.group(1))
             name = (kernel.group(1) if kernel else m.group(1)) + "<" + ",".join(
@@ -2264,6 +2279,61 @@ def bf16_bytes(kind, b, v, cin, cout):
     return 2 * b * v * (p8(cin) + p8(cout)) + nbr + 4 * 27 * cin * cout
 
 
+def bf16_read_bytes(kind, b, v, cin, cout):
+    """Bytes a bf16 call moves as it now reads its inputs: the fp32 rows
+    and weights the network holds (each once; no bf16 operand copy), the
+    int32 neighbour table once, its f32 output once.  Printed beside
+    `bf16_bytes`, which stays the (stricter) bound."""
+    nbr = 4 * 27 * b * v
+    if kind == "fwd_bf16":
+        return 4 * b * v * cin + nbr + 4 * 27 * cin * cout + 4 * b * v * cout
+    if kind == "dgrad_bf16":
+        return 4 * b * v * cout + nbr + 4 * 27 * cin * cout + 4 * b * v * cin
+    return 4 * b * v * (cin + cout) + nbr + 4 * 27 * cin * cout
+
+
+KERNEL_COUNT_CALLS = 10
+
+
+def kernels_per_call(fn):
+    """The CUDA kernels one call of `fn()` launches, as torch.profiler
+    records them over KERNEL_COUNT_CALLS calls: the most over
+    PROFILE_WINDOWS windows (a window now and then loses kernels, never adds
+    them), up to twice as many more while none has seen a kernel; None if
+    none did."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for window in range(3 * PROFILE_WINDOWS):
+        if window >= PROFILE_WINDOWS and most:
+            break
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(KERNEL_COUNT_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA))
+    return most / KERNEL_COUNT_CALLS if most else None
+
+
+def bf16_launches_expected(sc, kind, b, v, cin, cout):
+    """Kernels a bf16 call may launch by its plan: one, or two with a tap
+    split or a row-chunk sum.  None for a port without the plans."""
+    if not hasattr(sc, "bf16_forward_plan"):
+        return None
+    import torch
+
+    sms = sc._sm_count(torch.cuda.current_device())
+    if kind == "wgrad_bf16":
+        return 1 + (sc.bf16_wgrad_plan(b, v, cin, cout, sms)["chunks"] > 1)
+    k, n = (cin, cout) if kind == "fwd_bf16" else (cout, cin)
+    return 1 + (sc.bf16_forward_plan(b, v, k, n, sms)["splits"] > 1)
+
+
 def phase_bf16_kernels(shapes, kinds, tag, timed=True):
     """The bf16 kernels of `kinds` against their plain versions at every
     shape of `shapes` (train_conv_shapes' dicts), each run twice and held
@@ -2312,8 +2382,17 @@ def phase_bf16_kernels(shapes, kinds, tag, timed=True):
                 raise AssertionError(f"{kind} not bitwise repeatable at {cin}->{cout}, V={v}")
             nbytes = bf16_bytes(kind, b, v, cin, cout)
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            want_launches = bf16_launches_expected(sc, kind, b, v, cin, cout)
+            launched = kernels_per_call(kernel)
+            # more kernels than the plan's would be an operand copy or a
+            # fallback; fewer only a window that lost some
+            if want_launches is not None and launched is not None and launched > want_launches:
+                raise AssertionError(
+                    f"{kind} at {cin}->{cout}, V={v}: {launched} kernels per call, its plan "
+                    f"launches {want_launches} (no operand copy)")
             row[kind] = dict(max_abs_err=err, max_ref=scale, bytes=nbytes, bound_ms=bound_ms,
-                             bound_by=bound_by)
+                             bound_by=bound_by, read_bytes=bf16_read_bytes(kind, b, v, cin, cout),
+                             kernels_per_call=launched)
             if timed:
                 row[kind].update(ms=cuda_ms(kernel, TIMED_LAUNCHES),
                                  device_ms=device_ms(kernel, TIMED_LAUNCHES, KERNEL_NAMES[kind]),
@@ -2323,10 +2402,18 @@ def phase_bf16_kernels(shapes, kinds, tag, timed=True):
               f"pairs={pairs:<8} " + "  ".join(
                   f"{k} x{sh['per_step'][k]} "
                   + (f"{row[k]['ms']:.4f}/{_fmt(row[k]['device_ms'])}/{row[k]['plain_ms']:.4f} ms "
-                     if timed else "")
-                  + f"bound {row[k]['bound_ms']:.4f} ({row[k]['bound_by']}) "
+                     + (f"(x{row[k]['device_ms'] / row[k]['bound_ms']:.1f} the bound) "
+                        if row[k]["device_ms"] else "") if timed else "")
+                  + f"bound {row[k]['bound_ms']:.4f} ({row[k]['bound_by']}; reads "
+                  f"{row[k]['read_bytes'] / 1e6:.2f} MB, kernels per call "
+                  f"{_fmt_count(row[k]['kernels_per_call'])}) "
                   f"d {row[k]['max_abs_err']:.1e}/{row[k]['max_ref']:.1e}" for k in kinds)
               + ("  (call/device/plain; bitwise repeatable)" if timed else "  (bitwise repeatable)"))
+    for kind in kinds:
+        if hasattr(sc, "bf16_forward_plan") and all(r[kind]["kernels_per_call"] is None
+                                                    for r in rows):
+            raise AssertionError(f"{kind}: the profiler saw no kernel at any shape, so the "
+                                 f"launches per call are not shown")
     return rows
 
 
@@ -2352,6 +2439,37 @@ def interleaved(tag, fns, n, smi):
         f"{k} median {m:.3f} ms (p10 {statistics.quantiles(times[k], n=10)[0]:.3f}, p90 "
         f"{statistics.quantiles(times[k], n=10)[-1]:.3f})" for k, m in med.items()) + f"  ({smi})")
     return med
+
+
+BF16_KINDS = ("fwd_bf16", "dgrad_bf16", "wgrad_bf16")
+
+
+def bf16_inference_shapes(cfg, hierarchy):
+    """The bf16 forward's shapes of one bare forward: every backbone conv of
+    `hierarchy` with its launches per forward."""
+    return [dict(net="backbone", level=li, cin=cin, cout=cout, nbr=hierarchy.levels[li].subm_nbr,
+                 per_step={"fwd_bf16": per})
+            for li, cin, cout, per in backbone_conv_shapes(cfg.channels)]
+
+
+def bf16_train_shapes(shapes):
+    """train_conv_shapes' dicts with the bf16 counters' names."""
+    return [dict(sh, per_step={f"{k}_bf16": n for k, n in sh["per_step"].items()})
+            for sh in shapes]
+
+
+def kernel_sums(tag, rows, kinds, what, smi):
+    """Prints and returns {kind: (device ms, call ms)} summed over `rows`
+    weighted by their launches (per step, or per forward)."""
+    sums = {}
+    for kind in kinds:
+        per = [(r[kind], r["per_step"][kind]) for r in rows if r["per_step"].get(kind)]
+        dev = _weighted([dict(k, per=n) for k, n in per], "device_ms", "per")
+        call = sum(k["ms"] * n for k, n in per)
+        sums[kind] = (dev, call)
+    print(f"[{tag}] {what}: " + ", ".join(
+        f"{k} device {_fmt(d)} ms, call {c:.4f} ms" for k, (d, c) in sums.items()) + f"  ({smi})")
+    return sums
 
 
 def phase_bf16(fp32_forward_ms, smi):
@@ -2382,17 +2500,13 @@ def phase_bf16(fp32_forward_ms, smi):
     cfg, batch, sem, off = bench_cloud_setup(bf16, device="cuda")
     keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg)
     hier = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
-    inf_shapes = [dict(net="backbone", level=li, cin=cin, cout=cout, nbr=hier.levels[li].subm_nbr,
-                       per_step={"fwd_bf16": per})
-                  for li, cin, cout, per in backbone_conv_shapes(cfg.channels)]
-    inf_rows = phase_bf16_kernels(inf_shapes, ("fwd_bf16",), "bf16 kernel")
+    inf_rows = phase_bf16_kernels(bf16_inference_shapes(cfg, hier), ("fwd_bf16",), "bf16 kernel")
     tcfg, tbatch, tsem, toff = train_setup(bf16, batch_size=TRAIN_BATCH, device="cuda")
     tkeys, _, tnvox, _ = prepare_input_grid(tbatch.points, tbatch.point_mask, tcfg)
     thier = build_hierarchy(tkeys, tnvox, tcfg.input_capacities(), extent=tcfg.input_grid_extent)
-    shapes = [dict(sh, per_step={f"{k}_bf16": n for k, n in sh["per_step"].items()})
-              for sh in train_conv_shapes(tcfg, thier, proposal_geometry(tcfg, tbatch, tsem, toff))]
-    train_rows = phase_bf16_kernels(shapes, ("fwd_bf16", "dgrad_bf16", "wgrad_bf16"),
-                                    "bf16 train kernel")
+    shapes = bf16_train_shapes(
+        train_conv_shapes(tcfg, thier, proposal_geometry(tcfg, tbatch, tsem, toff)))
+    train_rows = phase_bf16_kernels(shapes, BF16_KINDS, "bf16 train kernel")
     t = lap("phase 11a (bf16 kernels vs plain)", t)
 
     model, out, launches, times = phase_forward(cfg, batch, sem, off, smi, kind="fwd_bf16",
@@ -2607,9 +2721,10 @@ def main():
                         help="card steps held against the CPU step in phase 6 "
                              f"(default {CARD_RUNS})")
     parser.add_argument("--kernels-only", action="store_true",
-                        help="run phases 1 and 2 and the kernel half of phase 5 only, then "
-                             "print the kernel line (launches null) and the nvidia-smi line; "
-                             "for comparing kernel versions in one call")
+                        help="run phases 1 and 2, the kernel half of phase 5 and phase 11a "
+                             "only, print per-step and per-forward device and call ms, then "
+                             "the kernel line (launches null) and the nvidia-smi line; for "
+                             "comparing kernel versions in one call")
     parser.add_argument("--port-root", type=Path, default=ROOT,
                         help="the checkout whose gapartnet_tpu_torch is measured (default: "
                              "this script's); with another, the SASS design check only prints")
@@ -2651,10 +2766,8 @@ def main():
                     ops["HMMA"] + ops["HGMMA"] and ops["LDGSTS"] + ops["UBLKCP"]):
                 raise AssertionError(f"{kname} uses no tensor-core or no asynchronous-copy "
                                      f"instruction: {ops}")
-            if own and kname.startswith(BF16_KERNELS) and not (
-                    ops["HMMA.16816.F32.BF16"] and ops["LDGSTS"]):
-                raise AssertionError(f"{kname} has no bf16 mma (HMMA.16816.F32.BF16) or no "
-                                     f"cp.async (LDGSTS): {ops}")
+            if own and kname.startswith(BF16_KERNELS) and not ops["HGMMA"]:
+                raise AssertionError(f"{kname} has no wgmma (HGMMA): {ops}")
     use_fp32_math()
     t = lap("phase 1 (build)", t)
 
@@ -2693,8 +2806,24 @@ def main():
     shapes = train_conv_shapes(tcfg, thier, proposal_geometry(tcfg, tbatch, tsem, toff))
     train_rows = phase_train_kernels(shapes)
     if args.kernels_only:
+        # the bf16 kernels at the same shapes: the forward at the bare
+        # forward's, all three at the train step's
+        kernel_sums("kernels-only", train_rows, ("fwd", "dgrad", "wgrad"),
+                    f"per B = {TRAIN_BATCH} step", smi)
+        kernel_sums("kernels-only", [dict(fwd=dict(ms=r["ms"], device_ms=r["device_ms"]),
+                                          per_step={"fwd": r["per_forward"]}) for r in rows],
+                    ("fwd",), "per B = 1 forward", smi)
+        bf16_inf = phase_bf16_kernels(bf16_inference_shapes(cfg, hierarchy), ("fwd_bf16",),
+                                      "bf16 kernel")
+        bf16_train = phase_bf16_kernels(bf16_train_shapes(shapes), BF16_KINDS, "bf16 train kernel")
+        kernel_sums("kernels-only", bf16_train, BF16_KINDS, f"per B = {TRAIN_BATCH} step", smi)
+        kernel_sums("kernels-only", bf16_inf, ("fwd_bf16",), "per B = 1 forward", smi)
+        numbers = dict(inf_rows=bf16_inf, train_rows=bf16_train, forward_launches=None,
+                       forward_ms=None, train_launches=dict.fromkeys(BF16_KINDS), step_ms=None,
+                       ab_forward=None, ab_step=None)
         print(json.dumps({"kernels": kernel_line(rows, [], None, train_rows,
-                                                 dict.fromkeys(LAUNCHES_PER_STEP))}))
+                                                 dict.fromkeys(LAUNCHES_PER_STEP))
+                          + bf16_kernel_entries(numbers)}))
         print(smi)
         return
     step, train_launches, step_times = phase_train(tcfg, tbatch, tsem, toff, smi)

@@ -1,228 +1,340 @@
 // Submanifold 3x3x3 sparse convolution on bf16 operands, forward and dgrad,
-// for NVIDIA Hopper (sm_90a).
+// for NVIDIA Hopper (sm_90a): wgmma from shared memory, bf16 rounding
+// inside the kernel, no operand copies.
 //
-// The bf16 twin of csrc/subm_conv.cu (which replaces the TPU kernel `_kernel`
-// of gapartnet_tpu/ops/pallas_conv.py:32, pallas_call at :68).  The Pallas
-// kernel casts its operands to f32 (pallas_conv.py:79); the JAX package's
-// bf16 conv is the XLA gather-GEMM with `compute_dtype=bfloat16`
-// (gapartnet_tpu/ops/sparse_conv.py:368-380, :250-268), the same function on
+// The bf16 twin of csrc/subm_conv.cu, which replaces the TPU kernel
+// `_kernel` of gapartnet_tpu/ops/pallas_conv.py:32 (pallas_call at :68) and,
+// as the dgrad, the same kernel in its custom VJP (`_bwd`, :95-103).  The
+// Pallas kernel casts its operands to f32 (pallas_conv.py:79); the JAX
+// package's bf16 conv is the XLA gather-GEMM with `compute_dtype=bfloat16`
+// (gapartnet_tpu/ops/sparse_conv.py:250-318, :368-380), the same function on
 // operands rounded to bf16:
 //
-//   out[b, v, n] = sum_k sum_c  x[b, nbr[b, k, v], c] * w[k][n][c]   (0 where nbr = -1)
+//   out[b, v, n] = sum_k sum_c  bf16(x[b, nbr[b, k, v], c]) * bf16(B_k[c][n])
+//                  (no term where nbr = -1), fp32 accumulation
 //
-// x (B, V, ld) bf16 and w (27, N, ld) bf16 are copies the wrapper writes,
-// each row padded with zeros to ld = K rounded up to 8 (16 bytes, so every
-// row is a whole number of 16-byte copies); nbr (B, 27, V) int32; out
-// (B, V, N) f32, fp32 accumulation.  A bf16 product is exact in fp32, so
-// only the order of the fp32 sums differs from the JAX package.
+//   * forward (sparse_conv.py:375-377): x = the features (B, V, Cin),
+//     B_k = W[k] (K = Cin, N = Cout), read in place from the (27, Cin, Cout)
+//     weights;
+//   * dgrad (sparse_conv.py:289-295): x = the output gradient (B, V, Cout),
+//     B_k = W[26 - k]^T (K = Cout, N = Cin), read in place from the same
+//     weights (`flip`), and the fp32 result rounded to bf16 (`round_out`),
+//     as the JAX VJP's `.astype(bfloat16)`.
 //
-//   * forward (sparse_conv.py:375-377): x = features, w[k][n][c] = W[k][c][n]
-//     (the weights transposed, so the k-pairs of an mma B fragment are
-//     adjacent), K = Cin, N = Cout;
-//   * dgrad (sparse_conv.py:289-295): x = the output gradient rounded to
-//     bf16, w[k][n][c] = W[26 - k][n][c] (the weights tap-reversed; as the
-//     B operand of the conv with flip(W, 0)^T it needs no transpose),
-//     K = Cout, N = Cin, and the fp32 result rounded to bf16
-//     (`round_out`), as the JAX VJP's `.astype(bfloat16)`.
+// x and W are fp32 or bf16, rows of any width and alignment: they are
+// rounded to bf16 (to nearest, ties to even, the values of
+// tensor.to(torch.bfloat16)) on their way into the operand buffers, so the
+// wrapper writes no operand copy.  A bf16 product is exact in fp32, so only
+// the order of the fp32 sums differs from the JAX package.
 //
-// What bounds it on this card: a gather-GEMM with K = 27 * Cin over the
-// neighbour pairs that exist.  At bf16 dense tensor-core rate (989 TFLOP/s)
-// every level of the flagship backbone is bound by bytes: the 27 x V
-// neighbour table and the rows gathered (each half the fp32 kernel's).
-// chip_smoke.py recomputes both bounds from the pairs in the run's data.
+// What bounds it on this card: a gather-GEMM over the neighbour pairs that
+// exist.  At the dense bf16 tensor-core rate (989 TFLOP/s) every level of
+// the flagship is bound by bytes: the 27 x V neighbour table, the rows and
+// the output (chip_smoke.py recomputes the bound from the run's pairs).  In
+// practice each row is gathered once per pair through L1/L2 (about 11.5
+// times at backbone level 1), as 16-byte asynchronous copies: timed inside
+// the kernel on the card, issuing a stage's copies takes most of a stage's
+// cycles, so the gathers' request traffic binds, not the tensor cores.  The
+// rows are read as the network holds them, fp32, twice the requests of a
+// bf16 copy: the price of writing no operand copy (PERF.md, section 6).
 //
-// Design: that of csrc/subm_conv.cu with bf16 operands:
-//   * a block owns 128 output voxels (4 warps, 32 rows each) and a tile of
-//     TN <= 64 output channels; B rides blockIdx.y, channel tiles and tap
-//     splits blockIdx.z; a per-tap presence vote over the block's
-//     neighbour indices skips taps with no neighbour in the tile;
-//   * the present (tap, channel chunk) pairs form a sequence of stages
-//     filled by cp.async (16 bytes, zero-fill past ld; an absent
-//     neighbour's row zeroed by plain stores) into a ring of kStages
-//     shared buffers, kStages - 1 stages ahead of the math.  A chunk is
-//     KC = 32 channels (16 for ld <= 16);
-//   * the math is one mma.sync m16n8k16 (bf16 in, fp32 accumulation) per
-//     16 channels, fragments read by ldmatrix from shared rows of KC + 8
-//     bf16 (16-byte aligned; 8 consecutive rows on 8 distinct 16-byte bank
-//     groups, so no bank conflicts);
+// Design:
+//   * a block is one warpgroup (128 threads) and owns 128 output voxels
+//     (two 64-row wgmma tiles; 64 where N > 128) and an N tile of at most
+//     256 channels (one wgmma N: every flagship width is one tile, so no
+//     voxel tile is gathered twice); B rides blockIdx.y, N tiles and tap
+//     splits blockIdx.z;
+//   * it first reads the tile's 27 neighbour indices per row (all loads in
+//     flight) and votes which taps have a neighbour in the tile; absent
+//     taps cost nothing;
+//   * the present (tap, 16-channel chunk) pairs form a sequence of stages.
+//     A 3-stage fp32 staging ring is filled by cp.async two stages ahead:
+//     warp w copies rows 32w .. 32w + 31, four lanes a row, so that each
+//     copy instruction asks for whole 32-byte sectors (an absent
+//     neighbour's row costs nothing), and thread t weight segments t,
+//     t + 128, ... (8 contiguous floats each: the forward's W[k] rows along
+//     N, the dgrad's W[26 - k] rows along K, both read in place).  Each
+//     thread then waits for its own copies, its warp syncs, and it converts
+//     its row and its segments to bf16 (to nearest, ties to even) into one
+//     of two operand buffers of core matrices: A K-major, the forward's B
+//     MN-major (wgmma's transposed B) and the dgrad's K-major, so neither
+//     needs a transposed weight copy.  One block barrier per stage, after
+//     the conversion (with the proxy fence wgmma needs);
+//   * wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulation) per 64-row
+//     tile and stage, the accumulators in registers across all taps;
+//     wgmma.wait_group 1 keeps one stage in flight and frees the operand
+//     buffer two stages back;
+//   * Cin = 6 (the stem) and other rows that are not 16-byte aligned are
+//     copied 4 bytes at a time and padded with zeros in shared memory;
+//     bf16 inputs are read and converted at conversion time instead;
 //   * small grids split their taps over blockIdx.z; each split writes an
 //     fp32 partial sum and a second kernel adds them in split order (and
 //     then rounds).  No atomics: a repeat is bitwise equal.
+// The launch plan (N tile, splits, shared bytes) is computed by the wrapper
+// (ops/subm_conv.bf16_forward_plan) and checked here.  Variants that lost
+// on the card (a warp-specialized mbarrier ring with producer warps, bulk
+// copies per row, per-warp stage buffers, 32-channel stages) are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using namespace gapartnet;
-typedef __nv_bfloat16 bf16;
 
 constexpr int kTaps = 27;
-constexpr int kTV = 128;          // voxels per block
-constexpr int kWarps = 4;         // each owns 32 voxels
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 3;        // cp.async ring depth
-constexpr int kBlocksPerSM = 8;   // split taps until the grid holds this many
-static_assert(kThreads == kTV, "thread t gathers row t");
+constexpr int kThreads = 128;     // one warpgroup
+constexpr int kStages = 3;        // fp32 staging ring: 2 stages' gathers in flight
+constexpr int KC = 16;            // channels per stage: one wgmma k-step
+constexpr int SA = KC + 4;        // fp32 staging row stride (16-byte rows, no bank conflicts)
+constexpr int SBO = KC * 16;      // bytes between core matrices along M or N
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 
-// N in equal tiles of at most 64, each rounded up to 8 (the mma N)
-int tile_channels(int N) {
-  const int tiles = (N + 63) / 64;
-  return (((N + tiles - 1) / tiles) + 7) / 8 * 8;
+// 64-row wgmma tiles per block: 2 (128 voxels) while the accumulators
+// (MT * NT / 2 a thread) stay within 128 registers
+__host__ __device__ constexpr int m_tiles(int nt) { return nt <= 128 ? 2 : 1; }
+
+__host__ __device__ constexpr int smem_bytes(int nt) {
+  // bf16 operands (2 buffers of A rows x KC and B nt x KC), fp32 staging
+  // (kStages of A rows x SA and the nt x KC weights), neighbour indices
+  return 2 * (64 * m_tiles(nt) + nt) * KC * 2 +
+         kStages * (64 * m_tiles(nt) * SA + nt * KC) * 4 + kTaps * 64 * m_tiles(nt) * 4;
 }
 
-// bf16 elements of a padded row of K channels
-__host__ __device__ constexpr int padded(int K) { return (K + 7) / 8 * 8; }
+struct Args {
+  const void* x;
+  const int* nbr;
+  const void* w;
+  float* out;
+  int V, K, N, taps_per_split;
+  int x_bf16, x_vec, w_bf16, w_vec, flip, round_out;
+};
 
-// channels per stage: 16 (one mma k-step) for rows of at most 16, else 32
-int chunk_channels(int K) { return padded(K) <= 16 ? 16 : 32; }
+template <int NT>
+__global__ void __launch_bounds__(kThreads) subm_conv_bf16_wgmma_kernel(const Args a) {
+  constexpr int MT = m_tiles(NT);
+  constexpr int ROWS = 64 * MT;
+  constexpr int SEGS = NT * KC / 8;   // 8-float weight segments of a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ unsigned s_or[kThreads / 32];
+  unsigned char* op_a = smem;                                   // [2][ROWS x KC] bf16
+  unsigned char* op_b = op_a + 2 * ROWS * KC * 2;               // [2][NT x KC] bf16
+  float* stg_a = reinterpret_cast<float*>(op_b + 2 * NT * KC * 2);   // [kStages][ROWS][SA]
+  float* stg_w = stg_a + kStages * ROWS * SA;                   // [kStages][SEGS][8]
+  int* s_nbr = reinterpret_cast<int*>(stg_w + kStages * NT * KC);    // [taps][ROWS]
 
-template <int TN, int KC>
-__global__ void __launch_bounds__(kThreads)
-subm_conv_bf16_fwd_kernel(const bf16* __restrict__ feats, const int* __restrict__ nbr,
-                          const bf16* __restrict__ w, float* __restrict__ out,
-                          int V, int K, int N, int taps_per_split, int round_out) {
-  constexpr int NT = TN / 8;
-  constexpr int S = KC + 8;                                   // shared row stride (bf16)
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned s_or[kWarps];
-  bf16* s_a = reinterpret_cast<bf16*>(smem);                  // [kStages][kTV][S]
-  bf16* s_w = s_a + kStages * kTV * S;                        // [kStages][TN][S]
-  int* s_nbr = reinterpret_cast<int*>(s_w + kStages * TN * S);  // [taps][kTV]
-
-  const int ld = padded(K);
+  const int V = a.V, K = a.K, N = a.N;
   const int b = blockIdx.y;
-  const int v0 = blockIdx.x * kTV;
-  const int ctiles = (N + TN - 1) / TN;
-  const int split = blockIdx.z / ctiles;
-  const int c0 = (blockIdx.z % ctiles) * TN;
-  const int k_begin = split * taps_per_split;
-  const int nk = min(kTaps, k_begin + taps_per_split) - k_begin;
-  // split s writes its partial sum to slice s of `out` (B, V, N each)
-  out += static_cast<size_t>(split) * gridDim.y * V * N;
+  const int v0 = blockIdx.x * ROWS;
+  const int ntiles = (N + NT - 1) / NT;
+  const int split = blockIdx.z / ntiles;
+  const int c0 = (blockIdx.z % ntiles) * NT;
+  const int k_begin = split * a.taps_per_split;
+  const int nk = min(kTaps, k_begin + a.taps_per_split) - k_begin;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bf16* fb = feats + static_cast<size_t>(b) * V * ld;
-  const int* nb = nbr + (static_cast<size_t>(b) * kTaps + k_begin) * V;
+  const bool xb = a.x_bf16 != 0, wb = a.w_bf16 != 0, flip = a.flip != 0;
+  const char* xbase = static_cast<const char*>(a.x) + static_cast<size_t>(b) * V * K * (xb ? 2 : 4);
+  const float* xf = reinterpret_cast<const float*>(xbase);
+  const float* wf = static_cast<const float*>(a.w);
 
   // the tile's neighbour indices (thread t reads row t's, all loads in
   // flight together) and the taps that have a neighbour anywhere in it
-  const int v = v0 + tid;
-  int srcs[kTaps];
+  {
+    unsigned mine = 0;
+    if (tid < ROWS) {
+      const int* nb = a.nbr + (static_cast<size_t>(b) * kTaps + k_begin) * V + v0 + tid;
+      int src[kTaps];
 #pragma unroll
-  for (int j = 0; j < kTaps; ++j)
-    srcs[j] = j < nk && v < V ? __ldg(nb + static_cast<size_t>(j) * V + v) : -1;
-  unsigned mine = 0;
+      for (int j = 0; j < kTaps; ++j)
+        src[j] = j < nk && v0 + tid < V ? __ldg(nb + static_cast<size_t>(j) * V) : -1;
 #pragma unroll
-  for (int j = 0; j < kTaps; ++j) {
-    if (j < nk) s_nbr[j * kTV + tid] = srcs[j];
-    mine |= static_cast<unsigned>(srcs[j] >= 0) << j;
+      for (int j = 0; j < kTaps; ++j) {
+        if (j < nk) s_nbr[j * ROWS + tid] = src[j];
+        mine |= static_cast<unsigned>(src[j] >= 0) << j;
+      }
+    }
+    mine = __reduce_or_sync(0xffffffffu, mine);
+    if ((tid & 31) == 0) s_or[tid >> 5] = mine;
   }
-  mine = __reduce_or_sync(0xffffffffu, mine);
-  if (lane == 0) s_or[warp] = mine;
   __syncthreads();
   unsigned taps = 0;
 #pragma unroll
-  for (int i = 0; i < kWarps; ++i) taps |= s_or[i];
-
-  const int nq = (ld + KC - 1) / KC;
+  for (int i = 0; i < kThreads / 32; ++i) taps |= s_or[i];
+  const int nq = (K + KC - 1) / KC;
   const int total = __popc(taps) * nq;
 
-  // stage s = (j-th present tap, chunk q): the copies' cursor (pmask, pq)
-  // runs kStages - 1 stages ahead of the math
-  unsigned pmask = taps;
-  int pq = 0;
-  auto load_stage = [&](int buf) {
-    const int j = __ffs(pmask) - 1;
-    const int cb = pq * KC;
-    // thread t gathers row t, pieces past ld zero-filled; an absent
-    // neighbour's row is zeroed by plain stores, so it costs no copy
-    bf16* a = s_a + (buf * kTV + tid) * S;
-    const int src = s_nbr[j * kTV + tid];
-    if (src >= 0) {
-      const bf16* row = fb + static_cast<size_t>(src) * ld + cb;
-#pragma unroll
-      for (int c = 0; c < KC; c += 8) cp_async16(a + c, cb + c < ld ? row + c : fb, cb + c < ld);
-    } else {
-#pragma unroll
-      for (int c = 0; c < KC; c += 8) *reinterpret_cast<uint4*>(a + c) = make_uint4(0u, 0u, 0u, 0u);
+  // Each warp copies, and later converts, only its own pieces: rows 32w ..
+  // 32w + 31 of A (row t converted by thread t) and weight segments t,
+  // t + 128, ... (8 contiguous floats each, copied and converted by thread
+  // t), so a stage needs no block barrier between its copies landing and
+  // its conversion.
+  // Forward segment e: row e % KC, columns 8 (e / KC) .. of W[k], stored
+  // MN-major (B's k-row of 8 n); dgrad segment e: row n = e % NT, columns
+  // 8 (e / NT) .. of W[26 - k], stored K-major (B's n-row of 8 k)
+  auto w_seg = [&](int k, int cb, int e, int& valid) -> const float* {
+    if (flip) {
+      const int n = c0 + e % NT, c = cb + 8 * (e / NT);
+      valid = n < N ? min(8, K - c) : 0;
+      return wf + (static_cast<size_t>(kTaps - 1 - k) * N + n) * K + c;
     }
-    // the w chunk: rows c0 + n < N, pieces cb + c < ld
-    constexpr int kPieces = KC / 8;
-    const bf16* wk = w + (static_cast<size_t>(k_begin + j) * N + c0) * ld + cb;
-    bf16* ws = s_w + buf * TN * S;
-    for (int e = tid; e < TN * kPieces; e += kThreads) {
-      const int n = e / kPieces;
-      const int c = (e - n * kPieces) * 8;
-      const bool ok = c0 + n < N && cb + c < ld;
-      cp_async16(ws + n * S + c, ok ? wk + static_cast<size_t>(n) * ld + c : w, ok);
+    const int n = c0 + 8 * (e / KC), c = cb + e % KC;
+    valid = c < K ? min(8, N - n) : 0;
+    return wf + (static_cast<size_t>(k) * K + c) * N + n;
+  };
+  // stage s = (j-th present tap, channel chunk q): the copies' cursor runs
+  // kStages - 1 stages ahead of the conversion's; one cp.async group per
+  // stage, empty past the last
+  unsigned imask = taps, cmask = taps;
+  int iq = 0, cq = 0;
+  auto issue = [&](int s) {
+    if (s < total) {
+      const int buf = s % kStages;
+      const int j = __ffs(imask) - 1;
+      const int cb = iq * KC;
+      if (!xb && (tid & ~31) < ROWS) {
+        if (a.x_vec && cb + KC <= K) {
+          // a warp copies its 32 rows 8 at a time, 4 lanes a row: each
+          // instruction asks for whole 32-byte sectors
+#pragma unroll
+          for (int i = 0; i < 32 * KC / 4 / 32; ++i) {
+            const int r = (tid & ~31) + i * 32 * 4 / KC + (tid & 31) / (KC / 4);
+            const int c = ((tid & 31) % (KC / 4)) * 4;
+            const int src = s_nbr[j * ROWS + r];
+            if (src >= 0)
+              cp_async_f32<4>(stg_a + (buf * ROWS + r) * SA + c,
+                              xf + static_cast<size_t>(src) * K + cb + c, true);
+          }
+        } else {
+          const int src = s_nbr[j * ROWS + tid];
+          if (src >= 0) {
+            float* dst = stg_a + (buf * ROWS + tid) * SA;
+            const float* row = xf + static_cast<size_t>(src) * K + cb;
+#pragma unroll
+            for (int c = 0; c < KC; ++c) cp_async_f32<1>(dst + c, cb + c < K ? row + c : xf, cb + c < K);
+          }
+        }
+      }
+      if (!wb) {
+#pragma unroll
+        for (int i = 0; i < (SEGS + kThreads - 1) / kThreads; ++i) {
+          const int e = tid + i * kThreads;
+          if (SEGS % kThreads == 0 || e < SEGS) {
+            int valid;
+            const float* src = w_seg(k_begin + j, cb, e, valid);
+            float* dst = stg_w + (buf * SEGS + e) * 8;
+            if (valid == 8 && a.w_vec) {
+              cp_async_f32<4>(dst, src, true);
+              cp_async_f32<4>(dst + 4, src + 4, true);
+            } else {
+#pragma unroll
+              for (int q = 0; q < 8; ++q) cp_async_f32<1>(dst + q, q < valid ? src + q : wf, q < valid);
+            }
+          }
+        }
+      }
+      if (++iq == nq) { iq = 0; imask &= imask - 1; }
     }
-    if (++pq == nq) { pq = 0; pmask &= pmask - 1; }
+    cp_commit();
   };
 
-  float acc[2][NT][4];
+  float acc[MT][NT / 2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    for (int i = 0; i < NT / 2; ++i) acc[m][i] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load_stage(s);
-    cp_async_commit();
-  }
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
   for (int s = 0; s < total; ++s) {
-    // stage s has landed for every thread, and every thread is done with
-    // the buffer that stage s + kStages - 1 now refills
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (s + kStages - 1 < total) load_stage((s + kStages - 1) % kStages);
-    cp_async_commit();
+    // this thread's staging of stage s - 1, which stage s + kStages - 1
+    // refills, was converted by it in the last iteration
+    issue(s + kStages - 1);
+    cp_wait<kStages - 1>();   // this thread's copies of stage s have landed,
+    __syncwarp();             // and its warp's (its rows' other pieces)
+    wgmma_wait<1>();          // the wgmma of stage s - 2 is done with its operands
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
 
+    // convert to bf16 core matrices: A K-major (row r at (r / 8) * SBO +
+    // (c / 8) * 128 + (r % 8) * 16), B MN-major (forward) or K-major (dgrad)
+    const int j = __ffs(cmask) - 1;
+    const int cb = cq * KC;
     const int buf = s % kStages;
-    const bf16* a = s_a + (buf * kTV + warp * 32) * S;
-    const bf16* ws = s_w + buf * TN * S;
+    unsigned char* oa = op_a + (s & 1) * ROWS * KC * 2;
+    unsigned char* ob = op_b + (s & 1) * NT * KC * 2;
+    if (tid < ROWS) {
+      const int src = s_nbr[j * ROWS + tid];
+      const float* sa = stg_a + (buf * ROWS + tid) * SA;
+      unsigned char* dst = oa + (tid >> 3) * SBO + (tid & 7) * 16;
 #pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      // A (16 x 16, rows = voxels): lane l addresses row l % 16, column
-      // kk + 8 (l / 16), giving the four 8x8 blocks in fragment order
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(af[mt], a + (mt * 16 + (lane & 15)) * S + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        // B (16 x 8) from rows n: lanes 0-7 columns kk, lanes 8-15 kk + 8
-        uint32_t bfr[2];
-        ldmatrix_x2(bfr, ws + (nt * 8 + (lane & 7)) * S + kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], af[mt], bfr);
+      for (int g = 0; g < KC / 8; ++g) {
+        const int c = cb + 8 * g;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (src >= 0)
+          val = xb ? load8_bf16(reinterpret_cast<const __nv_bfloat16*>(xbase) +
+                                    static_cast<size_t>(src) * K + c,
+                                K - c, a.x_vec && c + 8 <= K)
+                   : cvt8_bf16(sa + 8 * g);
+        *reinterpret_cast<uint4*>(dst + g * 128) = val;
       }
     }
-  }
-  cp_async_wait<0>();
-
-  const bool rnd = round_out != 0;
-  const int gr = lane >> 2;   // fragment row
-  const int tg = lane & 3;    // fragment column pair
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+    for (int i = 0; i < (SEGS + kThreads - 1) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      if (SEGS % kThreads == 0 || e < SEGS) {
+        int valid;
+        const float* src = w_seg(k_begin + j, cb, e, valid);
+        uint4 val;
+        if (wb)
+          val = load8_bf16(static_cast<const __nv_bfloat16*>(a.w) + (src - wf), valid,
+                           a.w_vec && valid == 8);
+        else
+          val = valid > 0 ? cvt8_bf16(stg_w + (buf * SEGS + e) * 8) : make_uint4(0u, 0u, 0u, 0u);
+        const int off = flip ? ((e % NT) >> 3) * SBO + (e / NT) * 128 + ((e % NT) & 7) * 16
+                             : (e / KC) * SBO + ((e % KC) >> 3) * 128 + ((e % KC) & 7) * 16;
+        *reinterpret_cast<uint4*>(ob + off) = val;
+      }
+    }
+    if (++cq == nq) { cq = 0; cmask &= cmask - 1; }
+    fence_proxy_async();
+    __syncthreads();
+
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        const uint64_t da = smem_desc(oa + m * 8 * SBO + ks * 256, 128, SBO);
+        const uint64_t db = smem_desc(ob + ks * 256, 128, SBO);
+        if (flip) Wgmma<NT>::template mma<0, 0>(acc[m], da, db);
+        else Wgmma<NT>::template mma<0, 1>(acc[m], da, db);
+      }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+
+  // split s writes its partial sum to slice s of `out` (B, V, N each)
+  float* out = a.out + static_cast<size_t>(split) * gridDim.y * V * N;
+  const bool rnd = a.round_out != 0;
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int vv = v0 + warp * 32 + mt * 16 + gr + 8 * h;
-      if (vv >= V) continue;
-      float* ob = out + (static_cast<size_t>(b) * V + vv) * N;
+      const int vv = v0 + m * 64 + warp * 16 + (lane >> 2) + 8 * h;
+      if (vv < V) {
+        float* o = out + (static_cast<size_t>(b) * V + vv) * N;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int co = c0 + nt * 8 + 2 * tg;
-        if (co < N) ob[co] = round_bf16(acc[mt][nt][2 * h], rnd);
-        if (co + 1 < N) ob[co + 1] = round_bf16(acc[mt][nt][2 * h + 1], rnd);
+        for (int j8 = 0; j8 < NT / 8; ++j8) {
+          const int co = c0 + j8 * 8 + 2 * (lane & 3);
+          if (co < N) o[co] = round_bf16(acc[m][4 * j8 + 2 * h], rnd);
+          if (co + 1 < N) o[co + 1] = round_bf16(acc[m][4 * j8 + 2 * h + 1], rnd);
+        }
       }
     }
   }
@@ -241,8 +353,34 @@ __global__ void sum_splits_bf16_kernel(const float* __restrict__ partial,
   }
 }
 
-constexpr size_t smem_bytes(int TN, int KC, int taps_per_split) {
-  return sizeof(bf16) * kStages * (kTV + TN) * (KC + 8) + sizeof(int) * taps_per_split * kTV;
+template <int NT>
+cudaError_t launch(const Args& a, int B, int splits, int smem, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      subm_conv_bf16_wgmma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(NT));
+  if (attr != cudaSuccess) return attr;
+  if (smem != smem_bytes(NT) || smem > kMaxSmem) return cudaErrorInvalidValue;
+  dim3 grid((a.V + 64 * m_tiles(NT) - 1) / (64 * m_tiles(NT)), B, ((a.N + NT - 1) / NT) * splits);
+  subm_conv_bf16_wgmma_kernel<NT><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_nt(int n_tile, const Args& a, int B, int splits, int smem, cudaStream_t s) {
+  switch (n_tile) {
+    case 16: return launch<16>(a, B, splits, smem, s);
+    case 32: return launch<32>(a, B, splits, smem, s);
+    case 48: return launch<48>(a, B, splits, smem, s);
+    case 64: return launch<64>(a, B, splits, smem, s);
+    case 80: return launch<80>(a, B, splits, smem, s);
+    case 96: return launch<96>(a, B, splits, smem, s);
+    case 112: return launch<112>(a, B, splits, smem, s);
+    case 128: return launch<128>(a, B, splits, smem, s);
+    case 160: return launch<160>(a, B, splits, smem, s);
+    case 192: return launch<192>(a, B, splits, smem, s);
+    case 224: return launch<224>(a, B, splits, smem, s);
+    case 256: return launch<256>(a, B, splits, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 int grid_blocks(size_t n, int threads) {
@@ -250,81 +388,50 @@ int grid_blocks(size_t n, int threads) {
   return need > 4096 ? 4096 : static_cast<int>(need);
 }
 
-template <int TN, int KC>
-cudaError_t launch(const bf16* feats, const int* nbr, const bf16* w, float* dst, int B, int V,
-                   int K, int N, int splits, int round_out, cudaStream_t stream) {
-  // the largest dynamic shared memory any shape asks of this kernel, set
-  // once (the attribute stays with the kernel)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      subm_conv_bf16_fwd_kernel<TN, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(TN, KC, kTaps)));
-  if (attr != cudaSuccess) return attr;
-  const int taps_per_split = (kTaps + splits - 1) / splits;
-  dim3 grid((V + kTV - 1) / kTV, B, ((N + TN - 1) / TN) * splits);
-  subm_conv_bf16_fwd_kernel<TN, KC><<<grid, kThreads, smem_bytes(TN, KC, taps_per_split), stream>>>(
-      feats, nbr, w, dst, V, K, N, taps_per_split, round_out);
-  return cudaGetLastError();
-}
-
-template <int TN>
-cudaError_t launch_kc(const bf16* feats, const int* nbr, const bf16* w, float* dst, int B, int V,
-                      int K, int N, int splits, int round_out, cudaStream_t s) {
-  return chunk_channels(K) == 16
-             ? launch<TN, 16>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s)
-             : launch<TN, 32>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-}
-
-cudaError_t launch_tn(const bf16* feats, const int* nbr, const bf16* w, float* dst, int B, int V,
-                      int K, int N, int splits, int round_out, cudaStream_t s) {
-  switch (tile_channels(N)) {
-    case 8: return launch_kc<8>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    case 16: return launch_kc<16>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    case 24: return launch_kc<24>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    case 32: return launch_kc<32>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    case 40: return launch_kc<40>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    case 48: return launch_kc<48>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    case 56: return launch_kc<56>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    case 64: return launch_kc<64>(feats, nbr, w, dst, B, V, K, N, splits, round_out, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// Number of tap splits the launcher uses for this shape on a card with
-// `sms` SMs (1 = no partial sums).  Pure: no CUDA call.
-int gapartnet_subm_conv_bf16_splits(int B, int V, int N, int sms) {
-  if (B <= 0 || V <= 0 || N <= 0 || sms <= 0) return 1;
-  const int tc = tile_channels(N);
-  const long long base = static_cast<long long>((V + kTV - 1) / kTV) * B * ((N + tc - 1) / tc);
-  const long long target = static_cast<long long>(kBlocksPerSM) * sms;
-  const long long want = (target + base - 1) / base;
-  const int splits = want < 1 ? 1 : (want > kTaps ? kTaps : static_cast<int>(want));
-  const int per = (kTaps + splits - 1) / splits;
-  return (kTaps + per - 1) / per;   // no empty split
-}
-
-// Plain C launcher for ctypes, on the current device.  `feats` (B, V, ld)
-// and `w` (27, N, ld) are bf16 with ld = K rounded up to 8, zeros past K,
-// both 16-byte aligned.  Launches on `stream` (PyTorch's current stream),
-// does not synchronise and allocates nothing: `partial` is the caller's
-// scratch of splits * B * V * N floats for `splits` > 1.  With `round_out`
-// the result is rounded to bf16 (the dgrad).  Returns 0 (cudaSuccess) or
-// the CUDA error code.
-cudaError_t gapartnet_subm_conv_bf16_forward(const void* feats, const int* nbr, const void* w,
-                                             float* out, float* partial, int B, int V, int K,
-                                             int N, int splits, int round_out, void* stream) {
+// Plain C launcher for ctypes, on the current device.  x (B, V, K) and the
+// weights (27, K, N), or (27, N, K) read tap-reversed and transposed with
+// `flip`, are fp32 (or bf16 where x_bf16 / w_bf16), contiguous; nbr
+// (B, 27, V) int32; out (B, V, N) f32.  The plan (n_tile, splits, smem)
+// is the wrapper's; it is refused (cudaErrorInvalidValue) if it does not fit
+// this kernel.  Launches on `stream` (PyTorch's current stream), does not
+// synchronise and allocates nothing: `partial` is the caller's scratch of
+// splits * B * V * N floats for `splits` > 1.  With `round_out` the result
+// is rounded to bf16 (the dgrad).  Returns 0 (cudaSuccess) or the CUDA
+// error code.
+cudaError_t gapartnet_subm_conv_bf16_forward(const void* x, int x_bf16, const int* nbr,
+                                             const void* w, int w_bf16, float* out,
+                                             float* partial, int B, int V, int K, int N,
+                                             int n_tile, int splits, int smem, int flip,
+                                             int round_out, void* stream) {
   if (B <= 0 || V <= 0 || N <= 0) return cudaSuccess;
-  if (K <= 0 || splits < 1 || splits > kTaps || (splits > 1 && partial == nullptr) ||
-      ((reinterpret_cast<uintptr_t>(feats) | reinterpret_cast<uintptr_t>(w)) & 15) != 0)
+  const int per = splits >= 1 ? (kTaps + splits - 1) / splits : 0;
+  if (K <= 0 || splits < 1 || splits > kTaps || (kTaps + per - 1) / per != splits ||
+      (splits > 1 && partial == nullptr))
     return cudaErrorInvalidValue;
+  const uintptr_t xp = reinterpret_cast<uintptr_t>(x), wp = reinterpret_cast<uintptr_t>(w);
+  Args a;
+  a.x = x;
+  a.nbr = nbr;
+  a.w = w;
+  a.out = splits > 1 ? partial : out;
+  a.V = V;
+  a.K = K;
+  a.N = N;
+  a.taps_per_split = per;
+  a.x_bf16 = x_bf16 != 0;
+  a.w_bf16 = w_bf16 != 0;
+  // 16-byte loads of 8 channels where every row and chunk is 16-byte aligned
+  a.x_vec = xp % 16 == 0 && K % (x_bf16 ? 8 : 4) == 0;
+  // the dgrad's weight rows run along K, the forward's along N
+  a.w_vec = wp % 16 == 0 && (flip ? K : N) % (w_bf16 ? 8 : 4) == 0;
+  a.flip = flip != 0;
+  a.round_out = splits > 1 ? 0 : round_out != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(feats);
-  const bf16* wb = static_cast<const bf16*>(w);
-  cudaError_t err = launch_tn(x, nbr, wb, splits > 1 ? partial : out, B, V, K, N, splits,
-                              splits > 1 ? 0 : round_out, s);
+  cudaError_t err = launch_nt(n_tile, a, B, splits, smem, s);
   if (err != cudaSuccess || splits == 1) return err;
   const size_t n = static_cast<size_t>(B) * V * N;
   sum_splits_bf16_kernel<<<grid_blocks(n, 256), 256, 0, s>>>(partial, out, n, splits, round_out);

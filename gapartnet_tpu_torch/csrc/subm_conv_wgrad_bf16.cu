@@ -1,188 +1,174 @@
 // Submanifold 3x3x3 sparse convolution on bf16 operands, weight gradient,
-// for NVIDIA Hopper (sm_90a).
+// for NVIDIA Hopper (sm_90a): wgmma from shared memory, bf16 rounding
+// inside the kernel, no operand copies.
 //
-// The bf16 twin of csrc/subm_conv_wgrad.cu (which replaces the weight half
-// of the TPU kernel's custom VJP, gapartnet_tpu/ops/pallas_conv.py:105-111).
-// The numerics it must reproduce are those of the JAX package's bf16 VJP,
-// gapartnet_tpu/ops/sparse_conv.py:289 and :297-316:
+// The bf16 twin of csrc/subm_conv_wgrad.cu, which replaces the weight half
+// of the TPU kernel's custom VJP (gapartnet_tpu/ops/pallas_conv.py:105-111).
+// The numerics it must reproduce are those of the JAX package's bf16 VJP
+// (gapartnet_tpu/ops/sparse_conv.py:250-318, the weight gradient at :297-316):
 //
-//   dW[k, ci, co] = bf16( sum_b sum_v  x[b, nbr[b, k, v], ci] * g[b, v, co] )
+//   dW[k, ci, co] = bf16( sum_b sum_v  bf16(x[b, nbr[b, k, v], ci]) * bf16(g[b, v, co]) )
 //                   (no term where nbr = -1)
 //
-// x (B, V, ldx) bf16 (the features rounded to bf16) and g (B, V, ldg) bf16
-// (the output gradient rounded to bf16) are copies the wrapper writes, rows
-// padded with zeros to ldx = Cin and ldg = Cout rounded up to 8; dW
-// (27, Cin, Cout) f32 holds the fp32 sums rounded to bf16, as the JAX VJP's
-// `.astype(bfloat16)`.
+// x (B, V, Cin) and g (B, V, Cout) are fp32 (or bf16) as the network holds
+// them, any width and alignment; they are rounded to bf16 (to nearest, ties
+// to even) on their way into the operand buffers.  dW (27, Cin, Cout) f32
+// holds the fp32 sums rounded to bf16, as the JAX VJP's `.astype(bfloat16)`.
 //
-// What bounds it on this card: the forward's neighbour pairs,
-// 2 * pairs * Cin * Cout FLOP at the bf16 dense tensor-core rate (989
-// TFLOP/s), against x, g and nbr read once and dW written once: bytes at
-// every level of the flagship.  chip_smoke.py recomputes both from the
-// pairs in the run's data.
+// What bounds it on this card: the forward's neighbour pairs, 2 * pairs *
+// Cin * Cout FLOP at the bf16 dense tensor-core rate (989 TFLOP/s), against
+// x, g and nbr read once and dW written once: bytes at every level of the
+// flagship (chip_smoke.py recomputes both from the run's pairs).  In
+// practice each present pair gathers an x row and a g row as 16-byte
+// asynchronous copies, and that request traffic binds, as in the forward
+// (csrc/subm_conv_bf16.cu); the rows are read in fp32 as the network holds
+// them, so that the wrapper writes no copy.
 //
-// Design: that of csrc/subm_conv_wgrad.cu with bf16 operands:
-//   * blocks over (row chunk, Cin tile x Cout tile, tap); Cin tiles 16, 32
-//     or 64, Cout tiles 16, 32, 48 or 64; 4 warps.  The GEMM per block is
-//     M = Cin tile, N = Cout tile, K = the chunk's rows whose neighbour
-//     exists at the tap;
-//   * a pass takes kCand candidate rows: every warp ballots its rows, a
-//     block prefix sum in row order gives each present row its place, and
-//     the pass's (x row, g row) pairs land in shared memory;
-//   * the compacted rows are gathered kKR at a time (16-byte cp.async,
-//     zero-fill past the count and past ld) through a ring of kStages
-//     buffers, kStages - 1 stages ahead of the math;
-//   * the math is mma.sync m16n8k16 (bf16 in, fp32 accumulation).  Both
-//     operands are stored row by row (rows = the GEMM's K), so their
-//     fragments are read by ldmatrix .trans from shared rows of T + 8 bf16
-//     (no bank conflicts).  When the Cin tile has fewer than 4 m16 tiles
-//     the warps also split the k-steps, and their partial tiles are added
-//     through shared memory in warp order;
-//   * the number of row chunks is chosen so that the grid holds about
-//     kBlocksPerSM blocks per SM; each chunk writes its fp32 partial dW to
-//     scratch and a second kernel adds them in chunk order and rounds (one
-//     chunk rounds in place).  No atomics: two runs are bitwise equal.
+// Design:
+//   * blocks over (row chunk, 64-channel Cin tile x N tile, tap): one
+//     warpgroup (128 threads) computes M = 64 input channels (one wgmma M;
+//     channels past Cin are zero rows, never copied), N = the N tile (at
+//     most 256, one wgmma N, every flagship width in one), K = the chunk's
+//     rows whose neighbour exists at the tap;
+//   * a pass takes 2048 candidate rows: the neighbour indices are read all
+//     at once (branch-free), every warp ballots its rows, a block prefix sum
+//     in row order gives each present row its place, and the pass's (x row,
+//     g row) pairs land in shared memory.  Absent pairs cost one index read
+//     and no product: at level 0 about 84% of the (tap, row) slots are
+//     empty;
+//   * the compacted pairs are gathered 32 at a time (two k-steps) through a
+//     3-stage fp32 staging ring by cp.async, two stages ahead; each thread
+//     copies and then converts only its own 8-float segments (pair t % 32,
+//     channels 8 (t / 32) + 32 i ..), after waiting for its own copies, into
+//     bf16 MN-major core matrices (A: M = ci, K = pair; B: K = pair, N = co;
+//     wgmma's transposed operands); one barrier per stage;
+//   * wgmma.mma_async m64nNk16 (trans bits 1), accumulators in registers
+//     over all passes; wgmma.wait_group 1 keeps one stage in flight;
+//   * the row chunks are the wrapper's (about 16 blocks per SM, at least
+//     512 rows each); each chunk writes its fp32 partial dW to scratch and a
+//     second kernel adds them in chunk order and rounds (one chunk rounds in
+//     place).  No atomics: two runs are bitwise equal.
+// The launch plan (N tile, chunks, rows per chunk, shared bytes) is the
+// wrapper's (ops/subm_conv.bf16_wgrad_plan) and checked here.  A flattened
+// design that stacked taps in M and read g once per row lost on the card at
+// the sparse levels (PERF.md, section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using namespace gapartnet;
-typedef __nv_bfloat16 bf16;
 
 constexpr int kTaps = 27;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kThreads = 128;               // one warpgroup
 constexpr int kPer = 16;                    // candidate rows per thread and pass
 constexpr int kCand = kPer * kThreads;      // candidate rows per pass
-constexpr int kKR = 64;                     // compacted rows per stage (4 k-steps)
-constexpr int kStages = 3;                  // cp.async ring depth
-constexpr int kBlocksPerSM = 16;            // row chunks until the grid holds this many
+constexpr int kKR = 32;                     // compacted rows (the GEMM's K) per stage: 2 k-steps
+constexpr int kStages = 3;                  // fp32 staging ring: 2 stages' gathers in flight
+constexpr int kTI = 64;                     // input channels per block: one wgmma M
+constexpr int kMaxSmem = 232448;
 
-// channel tiles: Cin (the mma M, one m16 tile per warp) 16, 32 or 64;
-// Cout (the mma N) 16, 32, 48 or 64
-int tile_in(int c) { return c <= 16 ? 16 : (c <= 32 ? 32 : 64); }
-int tile_out(int c) { return c <= 16 ? 16 : (c <= 32 ? 32 : (c <= 48 ? 48 : 64)); }
-
-__host__ __device__ constexpr int padded(int c) { return (c + 7) / 8 * 8; }
-
-long long rows_per_chunk(long long total, int chunks) {
-  const long long per = (total + chunks - 1) / chunks;
-  return ((per + kThreads - 1) / kThreads) * kThreads;
+__host__ __device__ constexpr int smem_bytes(int nt) {
+  // bf16 operands (2 buffers of A 64 x kKR and B nt x kKR), fp32 staging
+  // (kStages of both), the pass's compacted row lists
+  return 2 * (kTI + nt) * kKR * 2 + kStages * (kTI + nt) * kKR * 4 + 2 * kCand * 4;
 }
 
-// kKR compacted rows (from `first`) of one operand, channels c0 onwards,
-// into shared rows of T + 8; rows past n and pieces past ld are zero-filled
-template <int T>
-__device__ __forceinline__ void gather_rows(bf16* s, const bf16* base, const int* rows, int first,
-                                            int n, int c0, int ld, int tid) {
-  constexpr int S = T + 8;
-  constexpr int NV = T / 8;
-  for (int e = tid; e < kKR * NV; e += kThreads) {
-    const int r = e / NV;
-    const int c = (e % NV) * 8;
-    const bool ok = first + r < n && c0 + c < ld;
-    cp_async16(s + r * S + c, ok ? base + static_cast<size_t>(rows[first + r]) * ld + c0 + c : base,
-               ok);
-  }
-}
+struct Args {
+  const void* x;
+  const int* nbr;
+  const void* g;
+  float* dst;
+  int B, V, Cin, Cout;
+  long long chunk_rows;
+  int x_bf16, x_vec, g_bf16, g_vec, round_out;
+};
 
-template <int TI, int TO>
-__global__ void __launch_bounds__(kThreads)
-subm_conv_wgrad_bf16_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
-                            const bf16* __restrict__ g, float* __restrict__ dst,
-                            int B, int V, int Cin, int Cout, long long chunk_rows, int round_out) {
-  constexpr int WM = TI / 16;           // warps along Cin, one m16 tile each
-  constexpr int WK = kWarps / WM;       // warps along the rows (k-steps)
-  constexpr int NT = TO / 8;
-  constexpr int SX = TI + 8;
-  constexpr int SG = TO + 8;
-  constexpr int KSTEPS = kKR / 16;
-  static_assert(WM * WK == kWarps && KSTEPS % WK == 0, "the Cin tile must be 16, 32 or 64");
-  static_assert(NT % 2 == 0, "B fragments are loaded two n-tiles at a time");
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_x = reinterpret_cast<bf16*>(smem);                              // [kStages][kKR][SX]
-  bf16* s_g = s_x + kStages * kKR * SX;                                   // [kStages][kKR][SG]
-  int* s_src = reinterpret_cast<int*>(s_g + kStages * kKR * SG);          // [kCand] rows of x
-  int* s_dst = s_src + kCand;                                             // [kCand] rows of g
-  __shared__ int s_cnt[kPer * kWarps];
+template <int NT>
+__global__ void __launch_bounds__(kThreads) subm_conv_wgrad_bf16_wgmma_kernel(const Args a) {
+  constexpr int SBO = kKR * 16;           // bytes between 8-wide groups of ci (A) or co (B)
+  constexpr int BSEG = kKR * NT / 8;      // B segments of a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_cnt[kPer * 4];
   __shared__ int s_total;
+  unsigned char* op_a = smem;                                          // [2][64 x kKR] bf16
+  unsigned char* op_b = op_a + 2 * kTI * kKR * 2;                      // [2][NT x kKR] bf16
+  float* stg = reinterpret_cast<float*>(op_b + 2 * NT * kKR * 2);      // [kStages][64 + NT][kKR][..]
+  int* s_src = reinterpret_cast<int*>(stg + kStages * (kTI + NT) * kKR);   // [kCand] rows of x
+  int* s_dst = s_src + kCand;                                          // [kCand] rows of g
 
-  const int ldx = padded(Cin);
-  const int ldg = padded(Cout);
+  const int V = a.V, Cin = a.Cin, Cout = a.Cout;
   const int k = blockIdx.z;
-  const int co_tiles = (Cout + TO - 1) / TO;
-  const int ci0 = (blockIdx.y / co_tiles) * TI;
-  const int co0 = (blockIdx.y % co_tiles) * TO;
-  const long long total = static_cast<long long>(B) * V;
-  const long long r_begin = static_cast<long long>(blockIdx.x) * chunk_rows;
-  const long long r_end = min(total, r_begin + chunk_rows);
+  const int ntiles = (Cout + NT - 1) / NT;
+  const int ci0 = (blockIdx.y / ntiles) * kTI;
+  const int c0 = (blockIdx.y % ntiles) * NT;
+  const long long total = static_cast<long long>(a.B) * V;
+  const long long r_begin = static_cast<long long>(blockIdx.x) * a.chunk_rows;
+  const long long r_end = min(total, r_begin + a.chunk_rows);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp % WM;
-  const int wk = warp / WM;
-  const int gr = lane >> 2;
-  const int tg = lane & 3;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int pr = tid % kKR;               // the stage row (pair) of all this thread's segments
+  const bool xb = a.x_bf16 != 0, gb = a.g_bf16 != 0;
+  const float* xf = static_cast<const float*>(a.x);
+  const float* gf = static_cast<const float*>(a.g);
 
-  float acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  // A rows ci >= Cin stay zero: both operand buffers start zeroed
+  for (int e = tid; e < 2 * kTI * kKR / 8; e += kThreads)
+    reinterpret_cast<uint4*>(op_a)[e] = make_uint4(0u, 0u, 0u, 0u);
 
-  auto load_stage = [&](int st, int n) {
-    const int buf = st % kStages;
-    gather_rows<TI>(s_x + buf * kKR * SX, x, s_src, st * kKR, n, ci0, ldx, tid);
-    gather_rows<TO>(s_g + buf * kKR * SG, g, s_dst, st * kKR, n, co0, ldg, tid);
-  };
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  int done = 0;   // stages issued to the tensor cores so far (operand buffer parity)
 
   for (long long p0 = r_begin; p0 < r_end; p0 += kCand) {
     // compact the pass's rows whose neighbour exists at tap k, in row order:
-    // candidate p0 + i * kThreads + tid is number i * kWarps + warp of the
+    // candidate p0 + i * kThreads + tid is number i * 4 + warp of the
     // 32-row groups (rows are ints: B * V < 2^31; all kPer loads in flight)
     int src[kPer];
     int pos[kPer];
+    {
+      int r = static_cast<int>(p0) + tid;
+      int b = r / V, v = r - b * V;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const long long r = p0 + i * kThreads + tid;
-      src[i] = -1;
-      if (r < r_end) {
-        const int b = static_cast<int>(r) / V;
-        const int v = static_cast<int>(r) - b * V;
-        src[i] = __ldg(nbr + (static_cast<size_t>(b) * kTaps + k) * V + v);
-        if (src[i] >= 0) src[i] += b * V;
+      for (int i = 0; i < kPer; ++i) {
+        const bool in = r < r_end;
+        src[i] = __ldg(a.nbr + (static_cast<size_t>(in ? b : 0) * kTaps + k) * V + (in ? v : 0));
+        src[i] = in && src[i] >= 0 ? src[i] + b * V : -1;
+        r += kThreads;
+        v += kThreads;
+        while (v >= V) { v -= V; ++b; }
       }
     }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const unsigned ok = __ballot_sync(0xffffffffu, src[i] >= 0);
       pos[i] = __popc(ok & ((1u << lane) - 1u));
-      if (lane == 0) s_cnt[i * kWarps + warp] = __popc(ok);
+      if (lane == 0) s_cnt[i * 4 + warp] = __popc(ok);
     }
     __syncthreads();
     if (warp == 0) {   // exclusive scan of the 64 group counts, two per lane
-      const int c0 = s_cnt[2 * lane], c1 = s_cnt[2 * lane + 1];
-      int incl = c0 + c1;
+      const int q0 = s_cnt[2 * lane], q1 = s_cnt[2 * lane + 1];
+      int incl = q0 + q1;
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
         const int y = __shfl_up_sync(0xffffffffu, incl, d);
         if (lane >= d) incl += y;
       }
-      const int excl = incl - c0 - c1;
+      const int excl = incl - q0 - q1;
       s_cnt[2 * lane] = excl;
-      s_cnt[2 * lane + 1] = excl + c0;
+      s_cnt[2 * lane + 1] = excl + q0;
       if (lane == 31) s_total = incl;
     }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       if (src[i] >= 0) {
-        const int at = s_cnt[i * kWarps + warp] + pos[i];
+        const int at = s_cnt[i * 4 + warp] + pos[i];
         s_src[at] = src[i];
         s_dst[at] = static_cast<int>(p0 + i * kThreads + tid);
       }
@@ -191,70 +177,131 @@ subm_conv_wgrad_bf16_kernel(const bf16* __restrict__ x, const int* __restrict__ 
     const int n = s_total;
     const int stages = (n + kKR - 1) / kKR;
 
+    // each thread copies, and later converts, only its own segments: A
+    // segment e = tid + 128 i is pair e % 32, channels ci0 + 8 (e / 32) ..
+    // of its x row; B segment e is pair e % 32, channels c0 + 8 (e / 32) ..
+    // of its g row; absent pairs (past n) and channels are zero-filled
+    auto issue = [&](int st) {
+      const int buf = st % kStages;
+      float* sa = stg + buf * (kTI + NT) * kKR;
+      const int p = st * kKR + pr;
+      const bool live = p < n;
+      if (!xb) {
 #pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < stages) load_stage(st, n);
-      cp_async_commit();
-    }
-    for (int st = 0; st < stages; ++st) {
-      // stage st has landed for every thread, and every thread is done with
-      // the buffer that stage st + kStages - 1 now refills
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      if (st + kStages - 1 < stages) load_stage(st + kStages - 1, n);
-      cp_async_commit();
-
-      const bf16* xs = s_x + (st % kStages) * kKR * SX;
-      const bf16* gs = s_g + (st % kStages) * kKR * SG;
-      // this warp's k-steps of the stage, unrolled: rows past n are zeros
-#pragma unroll
-      for (int i = 0; i < KSTEPS / WK; ++i) {
-        const int ks = wk + i * WK;
-        // A[m = ci][kk = row] from rows kk: lanes 0-7 give rows 0-7 at
-        // channel 0, 8-15 rows 0-7 at channel 8, 16-23 rows 8-15 at 0,
-        // 24-31 rows 8-15 at 8, each block transposed
-        uint32_t af[4];
-        ldmatrix_x4_trans(af, xs + (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * SX + wm * 16 +
-                                  ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int nt = 0; nt < NT; nt += 2) {
-          // B[kk = row][n = co] for n-tiles nt (lanes 0-15: rows 0-15) and
-          // nt + 1 (lanes 16-31), transposed
-          uint32_t bq[4];
-          ldmatrix_x4_trans(bq, gs + (ks * 16 + (lane & 15)) * SG + (nt + (lane >> 4)) * 8);
-          const uint32_t b0[2] = {bq[0], bq[1]};
-          const uint32_t b1[2] = {bq[2], bq[3]};
-          mma_bf16(acc[nt], af, b0);
-          mma_bf16(acc[nt + 1], af, b1);
+        for (int i = 0; i < kTI * kKR / 8 / kThreads; ++i) {
+          const int cg = (tid + i * kThreads) / kKR;
+          const int ci = ci0 + 8 * cg;
+          if (ci >= Cin) continue;   // A rows past Cin stay zero
+          float* dst = sa + (cg * kKR + pr) * 8;
+          const int valid = live ? min(8, Cin - ci) : 0;
+          const float* row = xf + static_cast<size_t>(live ? s_src[p] : 0) * Cin + ci;
+          if (valid == 8 && a.x_vec) {
+            cp_async_f32<4>(dst, row, true);
+            cp_async_f32<4>(dst + 4, row + 4, true);
+          } else {
+            for (int q = 0; q < 8; ++q) cp_async_f32<1>(dst + q, q < valid ? row + q : xf, q < valid);
+          }
         }
       }
+      if (!gb) {
+        for (int e = tid; e < BSEG; e += kThreads) {
+          const int co = c0 + 8 * (e / kKR);
+          float* dst = sa + kTI * kKR + e * 8;
+          const int valid = live ? min(8, Cout - co) : 0;
+          const float* row = gf + static_cast<size_t>(live ? s_dst[p] : 0) * Cout + co;
+          if (valid == 8 && a.g_vec) {
+            cp_async_f32<4>(dst, row, true);
+            cp_async_f32<4>(dst + 4, row + 4, true);
+          } else {
+            for (int q = 0; q < 8; ++q) cp_async_f32<1>(dst + q, q < valid ? row + q : gf, q < valid);
+          }
+        }
+      }
+      cp_commit();
+    };
+
+    // one cp.async group per stage, empty past the last
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < stages) issue(st);
+      else cp_commit();
     }
-    // the next pass overwrites s_cnt, s_total and the row lists
-    cp_async_wait<0>();
+    for (int st = 0; st < stages; ++st) {
+      if (st + kStages - 1 < stages) issue(st + kStages - 1);
+      else cp_commit();
+      cp_wait<kStages - 1>();   // this thread's copies of stage st have landed
+      wgmma_wait<1>();          // the wgmma two stages back is done with its operands
+      fence_regs(acc);
+
+      // convert to bf16, MN-major core matrices: A (ci, pair) at
+      // (ci / 8) * SBO + (pair / 8) * 128 + (pair % 8) * 16, B likewise
+      const float* sa = stg + (st % kStages) * (kTI + NT) * kKR;
+      unsigned char* oa = op_a + (done & 1) * kTI * kKR * 2;
+      unsigned char* ob = op_b + (done & 1) * NT * kKR * 2;
+      const int p = st * kKR + pr;
+      const bool live = p < n;
+      unsigned char* at = oa + (pr >> 3) * 128 + (pr & 7) * 16;
+#pragma unroll
+      for (int i = 0; i < kTI * kKR / 8 / kThreads; ++i) {
+        const int cg = (tid + i * kThreads) / kKR;
+        const int ci = ci0 + 8 * cg;
+        if (ci >= Cin) continue;   // stays zero
+        uint4 val;
+        if (xb)
+          val = live ? load8_bf16(static_cast<const __nv_bfloat16*>(a.x) +
+                                      static_cast<size_t>(s_src[p]) * Cin + ci,
+                                  Cin - ci, a.x_vec && ci + 8 <= Cin)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        else
+          val = cvt8_bf16(sa + (cg * kKR + pr) * 8);
+        *reinterpret_cast<uint4*>(at + cg * SBO) = val;
+      }
+      for (int e = tid; e < BSEG; e += kThreads) {
+        const int ng = e / kKR;
+        const int co = c0 + 8 * ng;
+        uint4 val;
+        if (gb)
+          val = live ? load8_bf16(static_cast<const __nv_bfloat16*>(a.g) +
+                                      static_cast<size_t>(s_dst[p]) * Cout + co,
+                                  Cout - co, a.g_vec && co + 8 <= Cout)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        else
+          val = cvt8_bf16(sa + kTI * kKR + e * 8);
+        *reinterpret_cast<uint4*>(ob + ng * SBO + (pr >> 3) * 128 + (pr & 7) * 16) = val;
+      }
+      fence_proxy_async();
+      __syncthreads();
+
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKR / 16; ++ks)
+        Wgmma<NT>::template mma<1, 1>(acc, smem_desc(oa + ks * 256, 128, SBO),
+                                      smem_desc(ob + ks * 256, 128, SBO));
+      wgmma_commit();
+      ++done;
+    }
+    // the next pass overwrites the row lists (the last stages' copies have
+    // landed: their groups were waited for in the loop)
+    cp_wait<0>();
     __syncthreads();
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
 
-  // add the k-step warps' tiles in warp order, then write this chunk's tile
-  float* s_red = reinterpret_cast<float*>(smem);   // [WK][TI][TO], over the drained ring
+  const bool rnd = a.round_out != 0;
+  float* out = a.dst + (static_cast<size_t>(blockIdx.x) * kTaps + k) * Cin * Cout;
+  const int gl = lane >> 2;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    float* p = s_red + (wk * TI + wm * 16 + gr) * TO + nt * 8 + 2 * tg;
-    p[0] = acc[nt][0];
-    p[1] = acc[nt][1];
-    p[8 * TO] = acc[nt][2];
-    p[8 * TO + 1] = acc[nt][3];
-  }
-  __syncthreads();
-  const bool rnd = round_out != 0;
-  float* out = dst + (static_cast<size_t>(blockIdx.x) * kTaps + k) * Cin * Cout;
-  for (int e = tid; e < TI * TO; e += kThreads) {
-    const int ci = ci0 + e / TO;
-    const int co = co0 + e % TO;
-    if (ci >= Cin || co >= Cout) continue;
-    float s = s_red[e];
+  for (int h = 0; h < 2; ++h) {
+    const int ci = ci0 + warp * 16 + gl + 8 * h;
+    if (ci < Cin) {
+      float* o = out + static_cast<size_t>(ci) * Cout;
 #pragma unroll
-    for (int q = 1; q < WK; ++q) s += s_red[q * TI * TO + e];
-    out[static_cast<size_t>(ci) * Cout + co] = round_bf16(s, rnd);
+      for (int j8 = 0; j8 < NT / 8; ++j8) {
+        const int co = c0 + j8 * 8 + 2 * (lane & 3);
+        if (co < Cout) o[co] = round_bf16(acc[4 * j8 + 2 * h], rnd);
+        if (co + 1 < Cout) o[co + 1] = round_bf16(acc[4 * j8 + 2 * h + 1], rnd);
+      }
+    }
   }
 }
 
@@ -269,31 +316,33 @@ __global__ void sum_chunks_bf16_kernel(const float* __restrict__ partial,
   }
 }
 
-template <int TI, int TO>
-cudaError_t launch(const bf16* x, const int* nbr, const bf16* g, float* dst,
-                   int B, int V, int Cin, int Cout, int chunks, cudaStream_t stream) {
-  constexpr size_t ring = sizeof(bf16) * kStages * kKR * ((TI + 8) + (TO + 8));
-  constexpr size_t smem = ring + sizeof(int) * 2 * kCand;
-  static_assert(ring >= sizeof(float) * kWarps * 16 * TO, "the warp sums fit the ring");
+template <int NT>
+cudaError_t launch(const Args& a, int chunks, int smem, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      subm_conv_wgrad_bf16_kernel<TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      subm_conv_wgrad_bf16_wgmma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(NT));
   if (attr != cudaSuccess) return attr;
-  const long long rows = rows_per_chunk(static_cast<long long>(B) * V, chunks);
-  dim3 grid(chunks, ((Cin + TI - 1) / TI) * ((Cout + TO - 1) / TO), kTaps);
-  subm_conv_wgrad_bf16_kernel<TI, TO><<<grid, kThreads, smem, stream>>>(
-      x, nbr, g, dst, B, V, Cin, Cout, rows, chunks == 1);
+  if (smem != smem_bytes(NT) || smem > kMaxSmem) return cudaErrorInvalidValue;
+  dim3 grid(chunks, ((a.Cin + kTI - 1) / kTI) * ((a.Cout + NT - 1) / NT), kTaps);
+  subm_conv_wgrad_bf16_wgmma_kernel<NT><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int TI>
-cudaError_t launch_ti(const bf16* x, const int* nbr, const bf16* g, float* dst,
-                      int B, int V, int Cin, int Cout, int chunks, cudaStream_t s) {
-  switch (tile_out(Cout)) {
-    case 16: return launch<TI, 16>(x, nbr, g, dst, B, V, Cin, Cout, chunks, s);
-    case 32: return launch<TI, 32>(x, nbr, g, dst, B, V, Cin, Cout, chunks, s);
-    case 48: return launch<TI, 48>(x, nbr, g, dst, B, V, Cin, Cout, chunks, s);
-    default: return launch<TI, 64>(x, nbr, g, dst, B, V, Cin, Cout, chunks, s);
+cudaError_t launch_nt(int n_tile, const Args& a, int chunks, int smem, cudaStream_t s) {
+  switch (n_tile) {
+    case 16: return launch<16>(a, chunks, smem, s);
+    case 32: return launch<32>(a, chunks, smem, s);
+    case 48: return launch<48>(a, chunks, smem, s);
+    case 64: return launch<64>(a, chunks, smem, s);
+    case 80: return launch<80>(a, chunks, smem, s);
+    case 96: return launch<96>(a, chunks, smem, s);
+    case 112: return launch<112>(a, chunks, smem, s);
+    case 128: return launch<128>(a, chunks, smem, s);
+    case 160: return launch<160>(a, chunks, smem, s);
+    case 192: return launch<192>(a, chunks, smem, s);
+    case 224: return launch<224>(a, chunks, smem, s);
+    case 256: return launch<256>(a, chunks, smem, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -301,49 +350,44 @@ cudaError_t launch_ti(const bf16* x, const int* nbr, const bf16* g, float* dst,
 
 extern "C" {
 
-// Number of row chunks the launcher uses for this shape on a card with
-// `sms` SMs (1 = no scratch).  The caller allocates a scratch buffer of
-// chunks * 27 * Cin * Cout floats when it is above 1.  Pure: no CUDA call.
-int gapartnet_subm_conv_wgrad_bf16_chunks(int B, int V, int Cin, int Cout, int sms) {
-  if (B <= 0 || V <= 0 || Cin <= 0 || Cout <= 0 || sms <= 0) return 1;
-  const int ti = tile_in(Cin);
-  const int to = tile_out(Cout);
-  const long long base =
-      static_cast<long long>(kTaps) * ((Cin + ti - 1) / ti) * ((Cout + to - 1) / to);
-  const long long target = static_cast<long long>(kBlocksPerSM) * sms;
-  const long long total = static_cast<long long>(B) * V;
-  long long want = (target + base - 1) / base;
-  const long long most = (total + kThreads - 1) / kThreads;
-  if (want > most) want = most;
-  if (want < 1) want = 1;
-  const long long per = rows_per_chunk(total, static_cast<int>(want));
-  return static_cast<int>((total + per - 1) / per);   // no empty chunk
-}
-
-// Plain C launcher for ctypes, on the current device.  `x` (B, V, ldx) and
-// `g` (B, V, ldg) are bf16 with rows padded with zeros to Cin and Cout
-// rounded up to 8, both 16-byte aligned; `dw` (27, Cin, Cout) f32 receives
-// the sums rounded to bf16.  Launches on `stream` (PyTorch's current
-// stream), does not synchronise and allocates nothing: `partial` is the
-// caller's scratch for `chunks` > 1.  Returns 0 (cudaSuccess) or the CUDA
-// error code.
-cudaError_t gapartnet_subm_conv_wgrad_bf16(const void* x, const int* nbr, const void* g,
-                                           float* dw, float* partial, int B, int V, int Cin,
-                                           int Cout, int chunks, void* stream) {
+// Plain C launcher for ctypes, on the current device.  x (B, V, Cin) and
+// g (B, V, Cout) are fp32 (or bf16 where x_bf16 / g_bf16), contiguous; nbr
+// (B, 27, V) int32; dw (27, Cin, Cout) f32 receives the sums rounded to
+// bf16.  The plan (n_tile, chunks, chunk_rows, smem) is the
+// wrapper's; it is refused (cudaErrorInvalidValue) if it does not fit this
+// kernel.  Launches on `stream` (PyTorch's current stream), does not
+// synchronise and allocates nothing: `partial` is the caller's scratch of
+// chunks * 27 * Cin * Cout floats for `chunks` > 1.  Returns 0
+// (cudaSuccess) or the CUDA error code.
+cudaError_t gapartnet_subm_conv_wgrad_bf16(const void* x, int x_bf16, const int* nbr,
+                                           const void* g, int g_bf16, float* dw, float* partial,
+                                           int B, int V, int Cin, int Cout, int n_tile,
+                                           int chunks, long long chunk_rows, int smem,
+                                           void* stream) {
   if (Cin <= 0 || Cout <= 0) return cudaSuccess;
+  const long long total = static_cast<long long>(B) * V;
   if (B <= 0 || V <= 0 || chunks < 1 || (chunks > 1 && partial == nullptr) ||
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) & 15) != 0)
+      n_tile <= 0 || n_tile > 256 || chunk_rows <= 0 || chunk_rows % kThreads != 0 ||
+      (total + chunk_rows - 1) / chunk_rows != chunks)
     return cudaErrorInvalidValue;
+  Args a;
+  a.x = x;
+  a.nbr = nbr;
+  a.g = g;
+  a.dst = chunks > 1 ? partial : dw;
+  a.B = B;
+  a.V = V;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  a.chunk_rows = chunk_rows;
+  a.x_bf16 = x_bf16 != 0;
+  a.g_bf16 = g_bf16 != 0;
+  // 16-byte loads of 8 channels where every row and chunk is 16-byte aligned
+  a.x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && Cin % (x_bf16 ? 8 : 4) == 0;
+  a.g_vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 && Cout % (g_bf16 ? 8 : 4) == 0;
+  a.round_out = chunks == 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* gb = static_cast<const bf16*>(g);
-  float* dst = chunks > 1 ? partial : dw;
-  cudaError_t err;
-  switch (tile_in(Cin)) {
-    case 16: err = launch_ti<16>(xb, nbr, gb, dst, B, V, Cin, Cout, chunks, s); break;
-    case 32: err = launch_ti<32>(xb, nbr, gb, dst, B, V, Cin, Cout, chunks, s); break;
-    default: err = launch_ti<64>(xb, nbr, gb, dst, B, V, Cin, Cout, chunks, s); break;
-  }
+  cudaError_t err = launch_nt(n_tile, a, chunks, smem, s);
   if (err != cudaSuccess || chunks == 1) return err;
   const size_t n = static_cast<size_t>(kTaps) * Cin * Cout;
   const int threads = 256;

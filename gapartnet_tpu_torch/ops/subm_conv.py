@@ -46,24 +46,29 @@ Three more wrappers launch the bf16 kernels, counted as "fwd_bf16",
 
   * `subm_conv_forward_bf16` -> csrc/subm_conv_bf16.cu;
   * `subm_conv_dgrad_bf16`   -> csrc/subm_conv_bf16.cu on the output
-                                gradient, with a tap-reversed weight copy;
+                                gradient, reading W tap-reversed and
+                                transposed in place;
   * `subm_conv_wgrad_bf16`   -> csrc/subm_conv_wgrad_bf16.cu.
 
-They take float32 or bfloat16 tensors and write the bf16 operand copies
-the kernels read (rows padded with zeros to a multiple of 8 channels, so
-every row is whole 16-byte copies; the weights in the layout of the mma's
-B fragments), run mma.sync m16n8k16 in one pass, and launch no fp32
-kernel.  Their plain versions (`subm_conv_bf16_reference`,
-`subm_conv_dgrad_bf16_reference`, `subm_conv_wgrad_bf16_reference`) round
-the operands, run the fp32 plain versions and round as the JAX VJP does.
+They take float32 or bfloat16 tensors as they are (rows of any width and
+alignment) and write no operand copy: the kernels gather fp32 rows and
+weights by cp.async, round them to bf16 in shared memory, run
+wgmma.mma_async (bf16 in, fp32 accumulation), and launch no fp32 kernel.
+Their launch plans (`bf16_forward_plan`, `bf16_wgrad_plan`: wgmma N tile,
+tap splits, row chunks, shared bytes) are computed here and checked by the
+kernels; a call is one launch, or two where it splits taps or row chunks.
+Their
+plain versions (`subm_conv_bf16_reference`, `subm_conv_dgrad_bf16_reference`,
+`subm_conv_wgrad_bf16_reference`) round the operands, run the fp32 plain
+versions and round as the JAX VJP does.
 
 The kernels are compiled at first use with nvcc for sm_90a into
 `gapartnet_tpu_torch/_build/` (one library per source, keyed by a hash of
 source, shared headers `csrc/*.cuh` and flags, the sources compiled
 in parallel) and bound through ctypes to plain `extern "C"` launchers.
 They launch on the current CUDA device and PyTorch's current stream.  The
-tap splits and row chunks of a shape (which need the card's SM count) are
-computed once per (device, shape) and cached, so a launch costs one ctypes
+tap splits, row chunks and plans of a shape (which need the card's SM count)
+are computed once per (device, shape) and cached, so a launch costs one ctypes
 call and the output's allocation.
 """
 
@@ -184,10 +189,9 @@ def _wgrad_library() -> ctypes.CDLL:
 def _bf16_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()["subm_conv_bf16"]))
     fn = lib.gapartnet_subm_conv_bf16_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.gapartnet_subm_conv_bf16_splits.argtypes = [ctypes.c_int] * 4
-    lib.gapartnet_subm_conv_bf16_splits.restype = ctypes.c_int
     lib.gapartnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gapartnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -197,10 +201,10 @@ def _bf16_library() -> ctypes.CDLL:
 def _wgrad_bf16_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()["subm_conv_wgrad_bf16"]))
     fn = lib.gapartnet_subm_conv_wgrad_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                                                  ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.gapartnet_subm_conv_wgrad_bf16_chunks.argtypes = [ctypes.c_int] * 5
-    lib.gapartnet_subm_conv_wgrad_bf16_chunks.restype = ctypes.c_int
     return lib
 
 
@@ -430,55 +434,111 @@ def subm_conv_wgrad_bf16_reference(
     return round_bf16(subm_conv_wgrad_reference(round_bf16(features), nbr, round_bf16(grad)))
 
 
-def bf16_rows(t: torch.Tensor) -> torch.Tensor:
-    """(..., C) float -> (..., C rounded up to 8) bfloat16, contiguous,
-    16-byte aligned, zeros past C: the operand copy the bf16 kernels read
-    (every row a whole number of 16-byte copies).  A tensor that already
-    is one is returned as it is."""
-    c = t.shape[-1]
-    cp = -(-c // 8) * 8
-    if (t.dtype == torch.bfloat16 and cp == c and t.is_contiguous()
-            and t.data_ptr() % 16 == 0):
-        return t
-    out = torch.empty(t.shape[:-1] + (cp,), dtype=torch.bfloat16, device=t.device)
-    out[..., :c] = t
-    out[..., c:] = 0
-    return out
+# The bf16 kernels' launch plans (csrc/subm_conv_bf16.cu and
+# csrc/subm_conv_wgrad_bf16.cu check what they are given against their own
+# layout): the wgmma N tiles the kernels are built for, the staging ring's
+# depth, the rows of a wgmma tile, the forward's channels per stage, the
+# wgrad's compacted rows per stage and candidate rows per pass, the shared
+# memory a block may use, and the blocks per SM the tap splits and row
+# chunks aim for.
+BF16_N_TILES = (16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+BF16_STAGES = 3
+BF16_ROWS = 64
+BF16_KC = 16
+BF16_WGRAD_ROWS = 32
+BF16_WGRAD_CANDIDATES = 2048
+BF16_MAX_SMEM = 232448
+BF16_THREADS = 128
+BF16_FWD_BLOCKS_PER_SM = 4
+BF16_WGRAD_BLOCKS_PER_SM = 16
+BF16_WGRAD_MIN_CHUNK_ROWS = 512
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _n_tile(n: int) -> int:
+    """The wgmma N of a tile of `n` output channels: n split into equal
+    tiles of at most 256, each rounded up to a width the kernels are built
+    for."""
+    per = _cdiv(n, _cdiv(n, BF16_N_TILES[-1]))
+    return next(t for t in BF16_N_TILES if t >= per)
+
+
+def bf16_forward_plan(b: int, v: int, k: int, n: int, sms: int) -> Dict[str, int]:
+    """Launch plan of the bf16 forward / dgrad kernel for x (b, v, k) ->
+    (b, v, n) on a card with `sms` SMs: the N tile; the voxels per block
+    (two 64-row wgmma tiles while their accumulators fit 128 registers a
+    thread, else one); the tap splits (until the grid holds
+    BF16_FWD_BLOCKS_PER_SM blocks per SM, no split empty); the dynamic
+    shared memory of a block (two bf16 operand buffers of A (rows x 16) and
+    B (n_tile x 16), BF16_STAGES fp32 staging buffers of the gathered rows
+    and the weights, the tile's 27 x rows neighbour indices)."""
+    n_tile = _n_tile(n)
+    rows = BF16_ROWS * (2 if n_tile <= 128 else 1)
+    kc = BF16_KC
+    smem = (2 * (rows + n_tile) * kc * 2 + BF16_STAGES * (rows * (kc + 4) + n_tile * kc) * 4
+            + K_TAPS * rows * 4)
+    base = _cdiv(v, rows) * b * _cdiv(n, n_tile)
+    splits = min(K_TAPS, max(1, _cdiv(BF16_FWD_BLOCKS_PER_SM * sms, base)))
+    splits = _cdiv(K_TAPS, _cdiv(K_TAPS, splits))
+    return dict(n_tile=n_tile, rows=rows, splits=splits, smem=smem)
+
+
+def bf16_wgrad_plan(b: int, v: int, cin: int, cout: int, sms: int) -> Dict[str, int]:
+    """Launch plan of the bf16 wgrad kernel (a block per row chunk, tap, 64
+    input channels and N tile): the N tile; the row chunks (until the grid
+    holds BF16_WGRAD_BLOCKS_PER_SM blocks per SM, each chunk at least
+    BF16_WGRAD_MIN_CHUNK_ROWS rows, a multiple of the 128 threads' rows,
+    none empty); the dynamic shared memory (two bf16 operand buffers and
+    BF16_STAGES fp32 staging buffers of A (64 x 32 compacted rows) and B
+    (32 x n_tile), and the pass's two lists of compacted rows)."""
+    n_tile = _n_tile(cout)
+    blocks = K_TAPS * _cdiv(cin, 64) * _cdiv(cout, n_tile)
+    rows = b * v
+    chunks = min(_cdiv(BF16_WGRAD_BLOCKS_PER_SM * sms, blocks),
+                 _cdiv(rows, BF16_WGRAD_MIN_CHUNK_ROWS))
+    chunk_rows = BF16_THREADS * _cdiv(_cdiv(rows, chunks), BF16_THREADS)
+    ab = (64 + n_tile) * BF16_WGRAD_ROWS
+    smem = 2 * ab * 2 + BF16_STAGES * ab * 4 + 2 * BF16_WGRAD_CANDIDATES * 4
+    return dict(n_tile=n_tile, chunks=_cdiv(rows, chunk_rows), chunk_rows=chunk_rows, smem=smem)
 
 
 @functools.lru_cache(maxsize=None)
-def _splits_bf16(device: int, b: int, v: int, n: int) -> int:
-    """Tap splits of the bf16 forward kernel for this shape."""
-    return _bf16_library().gapartnet_subm_conv_bf16_splits(b, v, n, _sm_count(device))
+def _forward_plan_bf16(device: int, b: int, v: int, k: int, n: int) -> Dict[str, int]:
+    return bf16_forward_plan(b, v, k, n, _sm_count(device))
 
 
 @functools.lru_cache(maxsize=None)
-def _chunks_bf16(device: int, b: int, v: int, cin: int, cout: int) -> int:
-    """Row chunks of the bf16 wgrad kernel for this shape."""
-    return _wgrad_bf16_library().gapartnet_subm_conv_wgrad_bf16_chunks(
-        b, v, cin, cout, _sm_count(device))
+def _wgrad_plan_bf16(device: int, b: int, v: int, cin: int, cout: int) -> Dict[str, int]:
+    return bf16_wgrad_plan(b, v, cin, cout, _sm_count(device))
 
 
-def _launch_forward_bf16(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, k: int,
-                         counter: str, round_out: bool) -> torch.Tensor:
-    """The bf16 forward kernel on operand copies x (B, V, ld) and
-    w (27, N, ld), ld = k rounded up to 8 -> (B, V, N) f32; with
-    `round_out` the result rounded to bf16 (the dgrad)."""
+def _launch_forward_bf16(x: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
+                         counter: str, flip: bool) -> torch.Tensor:
+    """The bf16 forward kernel on x (B, V, K) as it is (fp32 or bf16) and
+    the weights in place -> (B, V, N) f32; with `flip` the dgrad: the
+    forward's (27, N, K) weights read tap-reversed and transposed, the
+    result rounded to bf16."""
     lib = _bf16_library()
-    b, v, _ = x.shape
-    n = w.shape[1]
+    b, v, k = x.shape
+    n = weights.shape[1] if flip else weights.shape[2]
     device = _device(x, f"subm_conv {counter}")
+    plan = _forward_plan_bf16(device, b, v, k, n)
     out = torch.empty((b, v, n), dtype=torch.float32, device=x.device)
-    splits = _splits_bf16(device, b, v, n)
+    splits = plan["splits"]
     partial = (
         torch.empty((splits, b, v, n), dtype=torch.float32, device=x.device)
         if splits > 1 else None
     )
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.gapartnet_subm_conv_bf16_forward(
-        x.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(),
+        x.data_ptr(), int(x.dtype == torch.bfloat16), nbr.data_ptr(), weights.data_ptr(),
+        int(weights.dtype == torch.bfloat16), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        b, v, k, n, splits, int(round_out), stream,
+        b, v, k, n, plan["n_tile"], splits, plan["smem"], int(flip), int(flip),
+        stream,
     )
     if rc != 0:
         msg = lib.gapartnet_cuda_error_string(rc).decode()
@@ -494,15 +554,12 @@ def subm_conv_forward_bf16(
     features: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
 ) -> torch.Tensor:
     """The bf16 forward alone, with no autograd: features (B, V, Cin) and
-    weights (27, Cin, Cout), float32 or bfloat16, rounded to bf16; nbr
-    (B, 27, V) int32 -> (B, V, Cout) f32 (fp32 accumulation)."""
+    weights (27, Cin, Cout), float32 or bfloat16, rounded to bf16 inside the
+    kernel; nbr (B, 27, V) int32 -> (B, V, Cout) f32 (fp32 accumulation)."""
     _check(features, nbr, weights, dtypes=_BF16)
     if not _on_card(features, "subm_conv"):
         return subm_conv_bf16_reference(features, nbr, weights)
-    # w[k][co][ci] = W[k][ci][co]: the k-pairs of a B fragment adjacent
-    wt = bf16_rows(weights.transpose(1, 2))
-    return _launch_forward_bf16(bf16_rows(features), nbr, wt, features.shape[-1],
-                                "fwd_bf16", round_out=False)
+    return _launch_forward_bf16(features, nbr, weights, "fwd_bf16", flip=False)
 
 
 def subm_conv_dgrad_bf16(
@@ -510,15 +567,11 @@ def subm_conv_dgrad_bf16(
 ) -> torch.Tensor:
     """The bf16 dgrad: d_features (B, V, Cin) f32, rounded to bf16, from the
     output gradient (B, V, Cout) rounded to bf16 and the forward's weights
-    (27, Cin, Cout): the bf16 forward kernel on flip(W, 0)^T."""
+    (27, Cin, Cout): the bf16 forward kernel on flip(W, 0)^T, read in place."""
     _check(grad, nbr, weights=weights, transposed=True, dtypes=_BF16)
     if not _on_card(grad, "subm_conv_dgrad"):
         return subm_conv_dgrad_bf16_reference(grad, nbr, weights)
-    # the conv's B operand is flip(W, 0)^T; stored row by row of its N
-    # (= Cin) with its K (= Cout) contiguous, that is flip(W, 0) itself
-    wf = bf16_rows(weights.flip(0))
-    return _launch_forward_bf16(bf16_rows(grad), nbr, wf, grad.shape[-1],
-                                "dgrad_bf16", round_out=True)
+    return _launch_forward_bf16(grad, nbr, weights, "dgrad_bf16", flip=True)
 
 
 def subm_conv_wgrad_bf16(
@@ -526,26 +579,28 @@ def subm_conv_wgrad_bf16(
 ) -> torch.Tensor:
     """The bf16 wgrad: d_weights (27, Cin, Cout) f32, rounded to bf16, from
     the inputs (B, V, Cin) and the output gradient (B, V, Cout), both
-    rounded to bf16, through csrc/subm_conv_wgrad_bf16.cu."""
+    rounded to bf16 inside the kernel, through csrc/subm_conv_wgrad_bf16.cu."""
     _check(features, nbr, grad=grad, dtypes=_BF16)
     b, v, cin = features.shape
     cout = grad.shape[-1]
     if not _on_card(features, "subm_conv_wgrad"):
         return subm_conv_wgrad_bf16_reference(features, nbr, grad)
     lib = _wgrad_bf16_library()
-    x, g = bf16_rows(features), bf16_rows(grad)
     device = _device(features, "subm_conv wgrad_bf16")
+    plan = _wgrad_plan_bf16(device, b, v, cin, cout)
     dw = torch.empty((K_TAPS, cin, cout), dtype=torch.float32, device=features.device)
-    chunks = _chunks_bf16(device, b, v, cin, cout)
+    chunks = plan["chunks"]
     partial = (
         torch.empty((chunks, K_TAPS, cin, cout), dtype=torch.float32, device=features.device)
         if chunks > 1 else None
     )
     stream = torch.cuda.current_stream(features.device).cuda_stream
     rc = lib.gapartnet_subm_conv_wgrad_bf16(
-        x.data_ptr(), nbr.data_ptr(), g.data_ptr(), dw.data_ptr(),
+        features.data_ptr(), int(features.dtype == torch.bfloat16), nbr.data_ptr(),
+        grad.data_ptr(), int(grad.dtype == torch.bfloat16), dw.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        b, v, cin, cout, chunks, stream,
+        b, v, cin, cout, plan["n_tile"], chunks, plan["chunk_rows"],
+        plan["smem"], stream,
     )
     if rc != 0:
         msg = _bf16_library().gapartnet_cuda_error_string(rc).decode()
@@ -572,24 +627,25 @@ class _SubmConv(torch.autograd.Function):
 
 
 class _SubmConvBf16(torch.autograd.Function):
-    """The JAX bf16 conv and its VJP (sparse_conv.py:286-318, 375-377):
-    the inputs are rounded to bf16 (and saved so), the output gradient is
-    rounded to bf16, and the dgrad and wgrad round their fp32 results to
-    bf16; the gradients come back as float32, the upcast of the VJP of
-    `astype`."""
+    """The JAX bf16 conv and its VJP (sparse_conv.py:286-318, 375-377): the
+    inputs are rounded to bf16, the output gradient is rounded to bf16, and
+    the dgrad and wgrad round their fp32 results to bf16; the gradients come
+    back as float32, the upcast of the VJP of `astype`.  The roundings of
+    the operands happen inside the kernels (and the plain versions), so the
+    features are saved as they came (the tensor the network holds anyway)
+    and the gradient is passed on as it comes."""
 
     @staticmethod
     def forward(ctx, features, nbr, weights):
-        x = features.to(torch.bfloat16)
-        ctx.save_for_backward(x, nbr, weights)
-        return subm_conv_forward_bf16(x, nbr, weights)
+        ctx.save_for_backward(features, nbr, weights)
+        return subm_conv_forward_bf16(features, nbr, weights)
 
     @staticmethod
     def backward(ctx, grad):
-        x, nbr, weights = ctx.saved_tensors
-        g = grad.to(torch.bfloat16).contiguous()
-        d_features = subm_conv_dgrad_bf16(g, nbr, weights) if ctx.needs_input_grad[0] else None
-        d_weights = subm_conv_wgrad_bf16(x, nbr, g) if ctx.needs_input_grad[2] else None
+        features, nbr, weights = ctx.saved_tensors
+        grad = grad.contiguous()
+        d_features = subm_conv_dgrad_bf16(grad, nbr, weights) if ctx.needs_input_grad[0] else None
+        d_weights = subm_conv_wgrad_bf16(features, nbr, grad) if ctx.needs_input_grad[2] else None
         return d_features, None, d_weights
 
 

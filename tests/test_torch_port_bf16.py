@@ -162,25 +162,31 @@ def test_bf16_vjp_matches_jax(cin):
 
 
 def test_bf16_wrappers_take_bf16_and_pad():
-    """The bf16 wrappers take bfloat16 inputs (as the autograd function
-    passes them) with the same results, and the operand copy pads rows to
-    a multiple of 8 with zeros."""
-    x, nbr, w, g = _conv_case(6, 3)
-    tx, tn, tw, tg = (torch.from_numpy(t) for t in (x, nbr, w, g))
-    torch.testing.assert_close(sc.subm_conv_forward_bf16(tx.to(BF16), tn, tw),
-                               sc.subm_conv_forward_bf16(tx, tn, tw), rtol=0, atol=0)
-    torch.testing.assert_close(sc.subm_conv_wgrad_bf16(tx.to(BF16), tn, tg.to(BF16)),
-                               sc.subm_conv_wgrad_bf16(tx, tn, tg), rtol=0, atol=0)
-    torch.testing.assert_close(sc.subm_conv_dgrad_bf16(tg.to(BF16), tn, tw),
-                               sc.subm_conv_dgrad_bf16(tg, tn, tw), rtol=0, atol=0)
-    rows = sc.bf16_rows(tx)
-    assert rows.dtype == BF16 and rows.shape[-1] == 8 and rows.is_contiguous()
-    assert not rows[..., 6:].any()
-    assert torch.equal(rows[..., :6], tx.to(BF16))
-    aligned = sc.bf16_rows(rows)
-    assert aligned is rows
+    """The bf16 wrappers take float32 or bfloat16 operands, rows of any
+    width, and round inside (the kernels round as they stage, the plain
+    versions here): bfloat16 and float32 inputs give bitwise-equal results;
+    rows of 6 channels need no padded copy (there is no operand-copy
+    helper; the kernels pad to 16 channels in shared memory); float64 and
+    float16 raise."""
+    assert not hasattr(sc, "bf16_rows")
+    for cin in (6, 16):
+        x, nbr, w, g = _conv_case(cin, 3)
+        tx, tn, tw, tg = (torch.from_numpy(t) for t in (x, nbr, w, g))
+        for fwd in (sc.subm_conv_forward_bf16(tx.to(BF16), tn, tw.to(BF16)),
+                    sc.subm_conv_forward_bf16(tx.to(BF16), tn, tw),
+                    sc.subm_conv_forward_bf16(tx, tn, tw.to(BF16))):
+            torch.testing.assert_close(fwd, sc.subm_conv_forward_bf16(tx, tn, tw), rtol=0, atol=0)
+        torch.testing.assert_close(sc.subm_conv_wgrad_bf16(tx.to(BF16), tn, tg.to(BF16)),
+                                   sc.subm_conv_wgrad_bf16(tx, tn, tg), rtol=0, atol=0)
+        torch.testing.assert_close(sc.subm_conv_dgrad_bf16(tg.to(BF16), tn, tw),
+                                   sc.subm_conv_dgrad_bf16(tg, tn, tw), rtol=0, atol=0)
+        assert sc.bf16_forward_plan(2, 300, cin, 12, 132)["n_tile"] == 16
     with pytest.raises(TypeError):
         sc.subm_conv_forward_bf16(tx.double(), tn, tw)
+    with pytest.raises(TypeError):
+        sc.subm_conv_forward_bf16(tx.half(), tn, tw)
+    with pytest.raises(TypeError):
+        sc.subm_conv_wgrad_bf16(tx, tn, tg.double())
     with pytest.raises(ValueError):
         sc.subm_conv(tx, tn, tw, compute_dtype=torch.float16)
 

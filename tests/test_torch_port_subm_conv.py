@@ -351,6 +351,10 @@ def _bf16_close(got: torch.Tensor, want: torch.Tensor, rtol: float) -> None:
     (40, 192, 300, "random"), (224, 224, 130, "random"), (16, 192, 1, "random"),
     (16, 16, 2500, "holes"), (224, 7, 300, "holes"), (6, 224, 129, "holes"),
     (40, 48, 700, "holes"), (5, 224, 1, "random"),
+    # the flagship widths: Cin 6 (the stem) to 192, Cout 16 to 112
+    (6, 16, 5000, "holes"), (32, 16, 3000, "random"), (64, 32, 2000, "random"),
+    (96, 48, 1500, "random"), (128, 64, 1000, "random"), (160, 80, 384, "random"),
+    (192, 96, 128, "random"), (112, 112, 128, "holes"),
 ])
 def test_bf16_kernels_match_reference_on_card(cin, cout, v, pattern):
     """The bf16 forward, dgrad and wgrad kernels against their plain
@@ -385,3 +389,66 @@ def test_bf16_kernels_match_reference_on_card(cin, cout, v, pattern):
     assert torch.equal(sc.subm_conv_dgrad_bf16(g, nbr, w), tx.grad)
     assert torch.equal(sc.subm_conv_wgrad_bf16(x, nbr, g), tw.grad)
     assert torch.equal(sc.subm_conv_wgrad_bf16(x, nbr, g), sc.subm_conv_wgrad_bf16(x, nbr, g))
+
+
+def _kernels_in_one_call(fn) -> int:
+    """CUDA kernels one call of fn() launches (torch.profiler), the most of
+    three windows (a window now and then loses kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA))
+    return most
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,v", [(6, 16, 3000), (16, 16, 3000), (32, 32, 2000),
+                                        (192, 96, 128), (96, 192, 300)])
+def test_bf16_kernels_inputs_views_and_launches_on_card(cin, cout, v):
+    """The bf16 kernels read float32 and bfloat16 operands alike (on values
+    that are already bf16 the results are bitwise equal), and views whose
+    rows are not 16-byte aligned (one float into their storage) give the
+    same bits; every kernel is bitwise repeatable; a call is one kernel
+    launch where its plan splits no taps and chunks no rows (no operand
+    copy), else two."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gapartnet_tpu_torch.ops import subm_conv as sc
+
+    x, w, g, nbr = _card_case(cin, cout, v, "random", cin * 1000 + cout + 11)
+    x, w, g = (t.to(torch.bfloat16).float() for t in (x, w, g))
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    calls = {
+        "fwd": lambda a, b_: sc.subm_conv_forward_bf16(a, nbr, b_),
+        "dgrad": lambda a, b_: sc.subm_conv_dgrad_bf16(a, nbr, b_),
+        "wgrad": lambda a, b_: sc.subm_conv_wgrad_bf16(a, nbr, b_),
+    }
+    args = {"fwd": (x, w), "dgrad": (g, w), "wgrad": (x, g)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b = x.shape[0]
+    plans = {"fwd": 1 + (sc.bf16_forward_plan(b, v, cin, cout, sms)["splits"] > 1),
+             "dgrad": 1 + (sc.bf16_forward_plan(b, v, cout, cin, sms)["splits"] > 1),
+             "wgrad": 1 + (sc.bf16_wgrad_plan(b, v, cin, cout, sms)["chunks"] > 1)}
+    for kind, fn in calls.items():
+        a0, a1 = args[kind]
+        with torch.no_grad():
+            want = fn(a0, a1)
+            assert torch.equal(fn(a0, a1), want), f"{kind}: not repeatable"
+            assert torch.equal(fn(a0.to(torch.bfloat16), a1.to(torch.bfloat16)), want), kind
+            assert torch.equal(fn(unaligned(a0), unaligned(a1)), want), f"{kind}: unaligned view"
+            assert _kernels_in_one_call(lambda: fn(a0, a1)) == plans[kind], kind
