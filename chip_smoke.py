@@ -22,7 +22,7 @@ source, in parallel), then:
      median of three windows of 20 launches);
   3. drives the flagship inference forward on the card (bench-cloud
      capacities and clustering overrides, seeded random weights): 5
-     warm-ups, then 100 timed requests (median and spread); it checks that
+     warm-ups, then 30 timed requests (median and spread); it checks that
      the kernel launched exactly 53 times per forward, that every capacity
      counter is zero and that every output is finite; it profiles one
      forward for its device time;
@@ -50,8 +50,8 @@ source, in parallel), then:
   7. the inference API at the flagship config with the eval capacities of
      train/trainer.py:452, seeded random weights, auto_capacity: predict on
      the bench cloud and predict_with_masks on its ground-truth instances
-     (3 warm-ups, 10 timed requests each), predict_depth on a depth frame
-     rendered from the cloud (1 warm-up, 3 timed requests; FPS timed
+     (3 warm-ups, 5 timed requests each), predict_depth on a depth frame
+     rendered from the cloud (1 warm-up, 2 timed requests; FPS timed
      alone); the kernel against its plain version on the hierarchy each of
      the three builds; 53 forward launches per request; the time of each
      request split into forward, selection (NMS), host scatter and RANSAC
@@ -64,13 +64,13 @@ source, in parallel), then:
      1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
   8. prints the wall time of each phase, one {"kernels": [...]} JSON line
      (the fp32 kernels, then the bf16 ones), the nvidia-smi line and, last,
-     the device line {"ok": true, "device": {...}}, after phase 11;
+     the device line {"ok": true, "device": {...}}, after phase 12;
   9. the trainer (the fifth slice's main path), in a temporary directory:
-     a dataset of assets/bench_cloud.npz rotated about z (88 train clouds,
+     a dataset of assets/bench_cloud.npz rotated about z (48 train clouds,
      3 per eval split, so each eval split ends in a padded batch);
      configs/gapartnet.yaml read by the port's reader with the overrides
      of FIT_OVERRIDES (8 clouds per step, widths, points and proposals not
-     cut); `trainer.fit(cfg, device="cuda")` in process: 2 epochs of 11
+     cut); `trainer.fit(cfg, device="cuda")` in process: 2 epochs of 6
      steps and a validation of the three splits after each, checking the
      forward, dgrad and wgrad launches of every train step at its epoch's
      flags and 53 forward launches per eval forward, finite losses, the
@@ -105,7 +105,7 @@ source, in parallel), then:
      dgrad and wgrad kernels against their plain versions at its own
      shapes, takes 2 warm-up steps (the first held against the one-process
      step: the ranks' summed losses and the running statistics within 1e-4
-     of magnitude, gradients within phase 6's allowance) and 5 timed
+     of magnitude, gradients within phase 6's allowance) and 3 timed
      steps (77 / 76 / 77 launches per step, zero counters, finite losses;
      ms per step, all-reduces per step, gradient bytes per step), checks
      its parameters and buffers bitwise against rank 0's, and times the
@@ -127,9 +127,9 @@ source, in parallel), then:
      version) beside their bound at the bf16 tensor-core peak and the HBM
      rate, with the bytes the call reads (fp32 rows, no copy) printed
      beside the bound's bf16 bytes; the bare forward, 5 warm-ups
-     and 50 timed (53 fwd_bf16 launches each and no fp32 subm-conv launch,
+     and 30 timed (53 fwd_bf16 launches each and no fp32 subm-conv launch,
      zero counters, finite outputs, a profile with the cuDNN bf16 rows),
-     printed beside phase 3's fp32 median, then 20 fp32 and 20 bf16
+     printed beside phase 3's fp32 median, then 10 fp32 and 10 bf16
      forwards in turns (the same weights; an A/B free of the host's drift
      over the call); the same forward on the CPU
      (integers exactly, sem_preds outside near-ties, floats within 1e-4 of
@@ -137,11 +137,34 @@ source, in parallel), then:
      by +-1 fp32 ulp move them: a bf16 network carries an fp32 rounding
      difference on as flipped bf16 roundings); train_step at B = 8 (3
      warm-ups, 20 timed, 77 / 76 / 77 bf16 launches and no fp32 one, zero
-     counters, moving losses and statistics, a profile), then 10 fp32 and
-     10 bf16 steps in turns; one card step
+     counters, moving losses and statistics, a profile), then 5 fp32 and
+     5 bf16 steps in turns; one card step
      against the CPU step at B = 2 with phase 6's allowance, plus the
      probes' move for losses and running statistics, and for gradients
-     BF16_KINK_FACTOR times the probes' move and one bf16 ulp of scale.
+     BF16_KINK_FACTOR times the probes' move and one bf16 ulp of scale;
+ 12. the model's other two configurations (the ninth slice's main path):
+     12a, exact clustering (GAPartNetConfig(clustering_impl="exact"), the
+     reference's first-K ball query and list CCL, ops/ball_query.py and
+     ops/ccl.py) on the bench cloud with the overrides, the proposal cap
+     and dense pool fitted to it: 3 warm-ups, then 20 exact forwards in
+     turns with 20 hash forwards (each exact forward: 53 forward launches,
+     2 ball queries, 2 CCLs, counted around it; zero counters); the ball
+     query and the CCL of both sets alone (ms per call by CUDA events,
+     kernel ms and launches by the profiler, tiles and CCL iterations, each
+     a host sync) and against the CPU (neighbour lists, counts, labels
+     exactly); the forward against the CPU (phase 4's rules); 3
+     GAPartNetInference.predict requests with exact clustering at the eval
+     capacities against the CPU (phase 7's rules, counters equal to the
+     CPU's); 12b, the PointNet backbone (GAPartNetConfig(backbone_type=
+     "PointNet")) at phase 5's B = 8 batch and capacities: the forward,
+     dgrad and wgrad kernels against their plain versions at the proposal
+     UNets' shapes of this step, 2 warm-ups and 10 timed train steps (24 /
+     24 / 24 launches per step, zero counters), a profiled step, one B = 2
+     step against the CPU (phase 6's allowance, with phase 11's terms for
+     rounding-sensitive steps but the bf16 ulp: the transformers' fc
+     BatchNorms take E[x^2] - mean^2 over the B rows) and one B = 1 eval
+     forward against the CPU (phase 4's rules).  The kernel line adds
+     phase 12's launches to the fp32 kernels' counts.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -198,7 +221,7 @@ SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UBLKCP", "HMMA.16816.F32.BF16")
 TIMED_LAUNCHES = 20
 PROFILE_WINDOWS = 3
 WARMUP_REQUESTS = 5
-TIMED_REQUESTS = 50
+TIMED_REQUESTS = 30
 CONVS_PER_FORWARD = 53
 # the counters of ops/subm_conv.LAUNCHES: the fp32 kernels and the bf16 ones
 KINDS = ("fwd", "dgrad", "wgrad", "fwd_bf16", "dgrad_bf16", "wgrad_bf16")
@@ -248,9 +271,9 @@ FORWARD_RTOL = 1e-4
 CELL_FLIP_SHARE = 1e-3
 # the inference API (phase 7): requests per phase, the stages of a request
 PREDICT_WARMUPS = 3
-PREDICT_REQUESTS = 10
+PREDICT_REQUESTS = 5
 DEPTH_WARMUPS = 1
-DEPTH_REQUESTS = 3
+DEPTH_REQUESTS = 2
 STAGES = ("forward", "select", "scatter", "ransac")
 # the depth frame: the bench cloud DEPTH_OFFSET in front of a 640 x 480
 # pinhole camera, each point splatted over a 7 x 7 square: about 90000 valid
@@ -266,9 +289,9 @@ DEPTH_SPLAT = 3
 NPCS_RTOL = FORWARD_RTOL
 BOX_RTOL = 1e-3
 # the trainer (phase 9): the dataset, the overrides of configs/gapartnet.yaml;
-# 11 steps per epoch, so that epoch 1 times 10 steps after its first
+# 6 steps per epoch, so that epoch 1 times 5 steps after its first
 FIT_BATCH = TRAIN_BATCH                            # the reference's 64 over 8 cards
-FIT_TRAIN_CLOUDS = 11 * FIT_BATCH
+FIT_TRAIN_CLOUDS = 6 * FIT_BATCH
 FIT_EVAL_CLOUDS = 3
 FIT_VAL_BATCH = 4
 # the card-vs-CPU reduced eval step: the val split's last batch of this
@@ -299,7 +322,7 @@ CLI_TIMEOUT_S = 600
 DP_WORLD = 2
 DP_BATCH = TRAIN_BATCH // DP_WORLD
 DP_WARMUP_STEPS = 2
-DP_TIMED_STEPS = 5
+DP_TIMED_STEPS = 3
 DP_ALLREDUCE_RUNS = 5
 # the 2-rank fit: phase 9's dataset with 23 train clouds, so the ranks'
 # shards hold 12 and 11 (3 and 2 batches of 4) and the fewer, 2, is what
@@ -335,8 +358,8 @@ BF16_KINK_FACTOR = 4.0
 # BatchNorm output moved by +-1 fp32 ulp (what another fp32 rounding does)
 NET_PROBES = (11, 12)
 # the bf16 forward and train step against the fp32 ones, called in turns
-AB_CALLS = 20
-AB_STEPS = 10
+AB_CALLS = 10
+AB_STEPS = 5
 
 
 def smi_line() -> str:
@@ -778,9 +801,11 @@ def train_conv_shapes(cfg, hierarchy, prop_hier):
     """Every distinct (V, Cin, Cout) of one train step with its neighbour
     table and its launches per step: the backbone's convs, and the convs of
     the two proposal UNets (channels[:2], no stem conv) on the proposal
-    grid.  The backbone stem's input needs no gradient, so it has no dgrad."""
+    grid.  The backbone stem's input needs no gradient, so it has no dgrad.
+    `hierarchy` None: a PointNet backbone, no backbone convs."""
     out = []
-    for li, cin, cout, per in backbone_conv_shapes(cfg.channels, cfg.in_channels):
+    for li, cin, cout, per in (backbone_conv_shapes(cfg.channels, cfg.in_channels)
+                               if hierarchy is not None else ()):
         dgrad = 0 if (li == 0 and cin == cfg.in_channels) else per
         out.append(dict(net="backbone", level=li, cin=cin, cout=cout,
                         nbr=hierarchy.levels[li].subm_nbr,
@@ -878,10 +903,10 @@ def proposal_geometry(cfg, batch, cluster_sem, cluster_off):
 
 
 def phase_train(cfg, batch, cluster_sem, cluster_off, smi, per_step=LAUNCHES_PER_STEP,
-                tag="train"):
-    """train_step on the card: warm-ups, then timed steps with the launch
-    counts read around them (`per_step` launches of each kind per step).
-    Returns (step function, launches, ms per step)."""
+                tag="train", warmups=WARMUP_STEPS, steps=TIMED_STEPS):
+    """train_step on the card: `warmups` steps, then `steps` timed steps
+    with the launch counts read around them (`per_step` launches of each
+    kind per step).  Returns (step function, launches, ms per step)."""
     import torch
 
     from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
@@ -896,17 +921,17 @@ def phase_train(cfg, batch, cluster_sem, cluster_off, smi, per_step=LAUNCHES_PER
         return train_step(model, opt, batch, gen, True, True, True,
                           cluster_sem_override=cluster_sem, cluster_offset_override=cluster_off)
 
-    history = [step() for _ in range(WARMUP_STEPS)]
+    history = [step() for _ in range(warmups)]
     torch.cuda.synchronize()
     reset_launches()
     times = []
-    for _ in range(TIMED_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         history.append(step())
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(LAUNCHES)
-    want = {k: n * TIMED_STEPS for k, n in per_step.items()}
+    want = {k: n * steps for k, n in per_step.items()}
     if launches != want:
         raise AssertionError(f"train steps launched {launches}, expected {want}")
     for i, m in enumerate(history):
@@ -924,11 +949,11 @@ def phase_train(cfg, batch, cluster_sem, cluster_off, smi, per_step=LAUNCHES_PER
         raise AssertionError(f"only {moved} of {len(stats0)} BN running statistics moved")
     deciles = statistics.quantiles(times, n=10)
     med = statistics.median(times)
-    print(f"[{tag}] B={batch.batch_size} ms per step over {TIMED_STEPS} steps: median {med:.3f}, "
+    print(f"[{tag}] B={batch.batch_size} ms per step over {steps} steps: median {med:.3f}, "
           f"p10 {deciles[0]:.3f}, p90 {deciles[-1]:.3f}, min {min(times):.3f}, "
           f"max {max(times):.3f}; {batch.batch_size / med * 1e3:.2f} clouds/s  ({smi})")
-    print(f"[{tag}] launches in {TIMED_STEPS} steps {launches} "
-          f"(per step {dict((k, v // TIMED_STEPS) for k, v in launches.items())}); "
+    print(f"[{tag}] launches in {steps} steps {launches} "
+          f"(per step {dict((k, v // steps) for k, v in launches.items())}); "
           f"all counters 0; {moved} BN running statistics moved")
     print(f"[{tag}] step 1: " + ", ".join(f"{k} {float(v):.4f}" for k, v in history[0].items()
                                           if not k.startswith("counters/")))
@@ -1003,10 +1028,13 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     At bf16 conv compute (phase 11) a rounding difference flips bf16
     roundings further on, and training's batch statistics carry the flips
     through the layers, so the losses and running statistics also get
-    KINK_FACTOR times the probes' move, a gradient one bf16 ulp of its
-    scale more (a rounding of dW that flips between card and CPU), and
-    sem_preds (with npcs_valid) may flip at near-ties of the CPU's logits,
-    as they may in the probes."""
+    KINK_FACTOR times the probes' move, a gradient BF16_KINK_FACTOR times
+    the probes' move and one bf16 ulp of its scale (a rounding of dW that
+    flips between card and CPU), and sem_preds (with npcs_valid) may flip
+    at near-ties of the CPU's logits, as they may in the probes.  A
+    PointNet step (phase 12b) is as rounding-sensitive without bf16: its
+    transformers' fc BatchNorms take E[x^2] - mean^2 over the B rows,
+    which cancels most digits; it gets the same terms but the bf16 ulp."""
     import torch
 
     from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
@@ -1044,18 +1072,21 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
         for f in dg._fields:
             _check_equal(f"backbone downsample {li} {f}", getattr(dg, f), getattr(dc, f))
     bf16 = cfg.conv_compute_dtype == "bfloat16"
+    # rounding-sensitive steps: a bf16 network, or PointNet, whose
+    # transformers' fc BatchNorms take E[x^2] - mean^2 over the B rows
+    sensitive = bf16 or cfg.backbone_type == "PointNet"
     reduced = ("entry_voxel_id", "proposal_sem", "ious")
     lc = oc.sem_logits.detach().cpu()
     sem_tol = LOSS_RTOL * float(lc.abs().max()) + max(
         float((op.sem_logits.detach().cpu() - lc).abs().max()) for _, op, _ in probes)
     for r, (_, og, _) in enumerate(cards):
-        _check_same_graph(f"card step {r + 1}", og, oc, fields=reduced if bf16 else (
+        _check_same_graph(f"card step {r + 1}", og, oc, fields=reduced if sensitive else (
             "entry_voxel_id", "sem_preds", "proposal_sem", "npcs_valid", "ious"))
-        if bf16:
+        if sensitive:
             _near_ties(f"card step {r + 1}", og.sem_preds.cpu(), lc, sem_tol)
     print(f"[{tag}] voxel keys, rulebooks, downsample maps; in all {runs} card steps: "
           "proposals, proposal-grid keys and rulebooks, entry_voxel_id, proposal classes, ious"
-          + (" identical to the CPU's; sem_preds equal outside near-ties" if bf16 else
+          + (" identical to the CPU's; sem_preds equal outside near-ties" if sensitive else
              ", sem_preds, npcs_valid: identical to the CPU's"))
     # a probe may flip an argmax near-tie of sem_preds (and with it
     # npcs_valid); the proposals and grids it must not change
@@ -1070,7 +1101,7 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
         got = [float(getattr(og, k).detach()) for _, og, _ in cards]
         worst_loss = max(abs(a - b) for a in got)
         allow = LOSS_RTOL * max(abs(b), 1.0) + (KINK_FACTOR * max(
-            abs(float(getattr(op, k).detach()) - b) for _, op, _ in probes) if bf16 else 0.0)
+            abs(float(getattr(op, k).detach()) - b) for _, op, _ in probes) if sensitive else 0.0)
         print(f"[{tag}] {k}: cpu {b:.7f}, card {', '.join(f'{a:.7f}' for a in got)}, "
               f"max|d| {worst_loss:.2e} (allowed {allow:.2e})")
         if not worst_loss <= allow:
@@ -1092,7 +1123,7 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
         ratio, worst_steady = {}, (0.0, "")
         for k, p in mg.named_parameters():
             err = float((p.grad.cpu() - grads_c[k]).abs().max())
-            kink = BF16_KINK_FACTOR if bf16 else KINK_FACTOR
+            kink = BF16_KINK_FACTOR if sensitive else KINK_FACTOR
             ulp = BF16_ULP * scale[k] if bf16 else 0.0
             allowed = GRAD_RTOL * scale[k] + kink * own[k] + ulp
             ratio[k] = err / allowed
@@ -1119,7 +1150,7 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
                 continue
             err = float((sg_[k].cpu() - sc_[k]).abs().max())
             scale_k = float(sc_[k].abs().max())
-            own_k = max(float((sp[k] - sc_[k]).abs().max()) for sp in sp_) if bf16 else 0.0
+            own_k = max(float((sp[k] - sc_[k]).abs().max()) for sp in sp_) if sensitive else 0.0
             if not err <= STATS_RTOL * scale_k + KINK_FACTOR * own_k:
                 raise AssertionError(f"card step {r + 1}, {k}: card vs CPU max|d| {err} > "
                                      f"{STATS_RTOL} * {scale_k} + {KINK_FACTOR} * {own_k}")
@@ -2478,7 +2509,7 @@ def phase_bf16(fp32_forward_ms, smi):
 
     The bf16 forward, dgrad and wgrad kernels against their plain versions
     at every backbone shape of bench_cloud_setup and every training shape
-    of train_setup at bf16; the bare forward (5 warm-ups, 50 timed, 53
+    of train_setup at bf16; the bare forward (5 warm-ups, 30 timed, 53
     fwd_bf16 launches each and no fp32 one, zero counters, a profile), and
     in turns with the fp32 forward;
     the same forward on the CPU at B = 1 (integers exactly, floats within
@@ -2601,15 +2632,269 @@ def bf16_kernel_entries(numbers):
     return entries
 
 
+# phase 12: the model's other two configurations.  12a: exact clustering
+# (the reference's first-K ball query and list CCL) at B = 1, in turns with
+# the hash forward; 12b: the PointNet backbone's train step at B = 8, whose
+# only subm convs are the two proposal UNets' 12 + 12 (each with a dgrad:
+# their input, the backbone's features, needs a gradient)
+EXACT_WARMUPS = 3
+EXACT_FORWARDS = 20
+EXACT_CALL_RUNS = 5
+EXACT_PREDICTS = 3
+POINTNET_WARMUPS = 2
+POINTNET_STEPS = 10
+POINTNET_LAUNCHES_PER_STEP = launch_counts(fwd=24, dgrad=24, wgrad=24)
+
+
+def _ulps(d2, r2):
+    """(d2 - r2) in float32 ulps of r2."""
+    import numpy as np
+
+    return (np.float64(d2) - np.float64(r2)) / float(np.spacing(np.float32(r2)))
+
+
+def _check_neighbours(name, got, want, pts, radius):
+    """Card and CPU neighbour lists equal; on a difference, print each
+    differing pair's d2 - r2 in ulps (the JAX rounding, ops/ball_query.
+    fma_sq_dist) before failing."""
+    import numpy as np
+    import torch
+
+    from gapartnet_tpu_torch.ops.ball_query import JAX_QUERY_BLOCK, fma_sq_dist
+
+    g, w = got.cpu(), want.cpu()
+    if torch.equal(g, w):
+        return
+    rows = (g != w).any(dim=1).nonzero()[:, 0][:10]
+    r2 = np.float32(radius * radius)
+    p = pts.cpu()
+    for q in rows.tolist():
+        pairs = sorted(set(g[q].tolist()) ^ set(w[q].tolist()) - {-1})
+        d2 = fma_sq_dist(p[q:q + 1], p[pairs], y_first=len(p) <= JAX_QUERY_BLOCK)[0]
+        print(f"[exact ops] {name}: query {q} differs at points {pairs}, d2 - r2 in ulps "
+              f"{[round(_ulps(v, r2), 2) for v in d2.tolist()]}")
+    raise AssertionError(f"{name}: card and CPU neighbour lists differ at {int((g != w).any(1).sum())}"
+                         " queries")
+
+
+def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
+    """The ball query and the CCL of both clustering sets of the forward
+    (cloud 0 under the overrides), alone: ms per call (CUDA events, median
+    of EXACT_CALL_RUNS), kernel ms and launches (profiler), tiles, exactly
+    decided pairs and CCL iterations (each one host sync); then the same on
+    the CPU: neighbour lists, counts and labels exactly.  The search runs
+    over the valid (foreground) points only, so each set is also timed with
+    every point valid (4e8 pairs, the load of a forward whose sem head marks
+    all points foreground).  Returns the rows."""
+    import torch
+
+    from gapartnet_tpu_torch.ops import ball_query as bq
+    from gapartnet_tpu_torch.ops import ccl
+
+    xyz = batch.points[0, :, :3]
+    sem = cluster_sem[0].to(torch.int32)
+    valid = (sem > 0) & batch.point_mask[0]
+    rows = {}
+    for name, pts, k in (("xyz", xyz, cfg.max_num_points_per_query),
+                         ("xyz+offsets", xyz + cluster_off[0], cfg.max_num_points_per_query_shift)):
+        def query():
+            return bq.ball_query_single(pts, sem, valid, cfg.ball_query_radius, k)
+
+        bq.STATS.update(calls=0, tiles=0, exact_pairs=0)
+        nbr, cnt = query()
+        torch.cuda.synchronize()
+        stats = dict(bq.STATS)
+        ccl.STATS.update(calls=0, iterations=0)
+        lab = ccl.connected_components_single(nbr, valid)
+        torch.cuda.synchronize()
+        iters = ccl.STATS["iterations"]
+
+        def label():
+            return ccl.connected_components_single(nbr, valid)
+
+        row = dict(k=k, tiles=stats["tiles"], exact_pairs=stats["exact_pairs"], ccl_iterations=iters,
+                   bq_ms=cuda_ms(query, EXACT_CALL_RUNS), ccl_ms=cuda_ms(label, EXACT_CALL_RUNS))
+        row["bq_device_ms"], row["bq_kernels"] = busy_ms(query)
+        row["ccl_device_ms"], row["ccl_kernels"] = busy_ms(label)
+        everyone = batch.point_mask[0]
+
+        def query_all():
+            return bq.ball_query_single(pts, sem, everyone, cfg.ball_query_radius, k)
+
+        bq.STATS.update(calls=0, tiles=0, exact_pairs=0)
+        nbr_all, _ = query_all()
+        row["all_valid"] = dict(tiles=bq.STATS["tiles"], bq_ms=cuda_ms(query_all, EXACT_CALL_RUNS))
+        row["all_valid"]["bq_device_ms"], row["all_valid"]["bq_kernels"] = busy_ms(query_all)
+        ccl.STATS.update(calls=0, iterations=0)
+        row["all_valid"]["ccl_ms"] = cuda_ms(
+            lambda: ccl.connected_components_single(nbr_all, everyone), EXACT_CALL_RUNS)
+        row["all_valid"]["ccl_iterations"] = ccl.STATS["iterations"] // (EXACT_CALL_RUNS + 3)
+        t0 = time.perf_counter()
+        nbr_c, cnt_c = bq.ball_query_single(pts.cpu(), sem.cpu(), valid.cpu(), cfg.ball_query_radius, k)
+        lab_c = ccl.connected_components_single(nbr_c, valid.cpu())
+        row["cpu_s"] = time.perf_counter() - t0
+        _check_neighbours(f"set {name}", nbr, nbr_c, pts, cfg.ball_query_radius)
+        _check_equal(f"set {name}: neighbour counts", cnt, cnt_c)
+        _check_equal(f"set {name}: CCL labels", lab, lab_c)
+        hits = cnt.float()
+        print(f"[exact ops] set {name}, K={k}: ball query {row['bq_ms']:.3f} ms per call (kernel "
+              f"{_fmt(row['bq_device_ms'])} ms in {row['bq_kernels']} launches; {row['tiles']} tiles, "
+              f"one host sync each; {row['exact_pairs']} pairs decided by the exact chain); "
+              f"neighbours per point mean {float(hits[valid].mean()):.1f}, at the cap "
+              f"{int((cnt == k).sum())}; CCL {row['ccl_ms']:.3f} ms per call (kernel "
+              f"{_fmt(row['ccl_device_ms'])} ms in {row['ccl_kernels']} launches), {iters} "
+              f"iterations (one host sync each), {len(torch.unique(lab[valid]))} components  ({smi})")
+        a = row["all_valid"]
+        print(f"[exact ops] set {name}, all {len(pts)} points valid: ball query {a['bq_ms']:.3f} ms "
+              f"per call (kernel {_fmt(a['bq_device_ms'])} ms in {a['bq_kernels']} launches, "
+              f"{a['tiles']} tiles); CCL {a['ccl_ms']:.3f} ms per call, {a['ccl_iterations']} "
+              f"iterations  ({smi})")
+        print(f"[exact ops] set {name}: CPU {row['cpu_s']:.1f} s; neighbour lists, counts, CCL labels "
+              "identical to the card's")
+        rows[name] = row
+    return rows
+
+
+def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
+    """Phase 12a: GAPartNetConfig(clustering_impl="exact") on the bench
+    cloud with the clustering overrides, capacities fitted
+    (entry.bench_cloud_setup).  EXACT_WARMUPS forwards, then EXACT_FORWARDS
+    in turns with the hash forward of phase 3's setup, each exact forward
+    with the counts set to 0 just before and read just after (53 forward
+    launches, 2 ball queries, 2 CCLs); zero counters; the ball query and
+    the CCL alone (phase_exact_ops); the forward against the CPU (phase 4's
+    rules); then EXACT_PREDICTS GAPartNetInference.predict requests at the
+    eval capacities against the CPU (phase 7's rules).  Returns the numbers."""
+    import torch
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig, eval_capacity_config
+    from gapartnet_tpu_torch.entry import bench_cloud_setup, make_model
+    from gapartnet_tpu_torch.ops import ball_query as bq
+    from gapartnet_tpu_torch.ops import ccl
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+
+    t = time.perf_counter()
+    cfg, batch, sem, off = bench_cloud_setup(GAPartNetConfig(clustering_impl="exact"), device="cuda")
+    print(f"[exact] fitted to the exact clustering: max_proposals {cfg.max_proposals}, dense pool "
+          f"{cfg.dense_grid_capacity} (hash setup: {hash_cfg.max_proposals}, "
+          f"{hash_cfg.dense_grid_capacity}); setup {time.perf_counter() - t:.1f} s")
+    model = make_model(cfg, "cuda", seed=0)
+    model_h = make_model(hash_cfg, "cuda", seed=0)
+    for _ in range(EXACT_WARMUPS):
+        run_forward(model, batch, sem, off)
+    run_forward(model_h, hash_batch, hash_sem, hash_off)
+    torch.cuda.synchronize()
+    times = {"exact": [], "hash": []}
+    launches = launch_counts()
+    bq_calls = ccl_calls = iters = 0
+    for _ in range(EXACT_FORWARDS):
+        reset_launches()
+        bq.STATS.update(calls=0, tiles=0, exact_pairs=0)
+        ccl.STATS.update(calls=0, iterations=0)
+        t0 = time.perf_counter()
+        out = run_forward(model, batch, sem, off)
+        torch.cuda.synchronize()
+        times["exact"].append((time.perf_counter() - t0) * 1e3)
+        if LAUNCHES != launch_counts(fwd=CONVS_PER_FORWARD):
+            raise AssertionError(f"exact forward: subm_conv launched {LAUNCHES}")
+        if (bq.STATS["calls"], ccl.STATS["calls"]) != (2, 2):
+            raise AssertionError(f"exact forward: {bq.STATS['calls']} ball queries, "
+                                 f"{ccl.STATS['calls']} CCLs (expected 2 and 2)")
+        launches["fwd"] += LAUNCHES["fwd"]
+        bq_calls += bq.STATS["calls"]
+        ccl_calls += ccl.STATS["calls"]
+        iters += ccl.STATS["iterations"]
+        t0 = time.perf_counter()
+        run_forward(model_h, hash_batch, hash_sem, hash_off)
+        torch.cuda.synchronize()
+        times["hash"].append((time.perf_counter() - t0) * 1e3)
+    counters = {k: int(v.sum()) for k, v in out.counters.items()}
+    if any(counters.values()):
+        raise AssertionError(f"exact forward: capacity counters nonzero: {counters}")
+    for name in ("sem_logits", "offset_preds", "score_preds", "npcs_preds"):
+        if not bool(torch.isfinite(getattr(out, name)).all()):
+            raise AssertionError(f"exact forward: {name} has non-finite values")
+    q = {k: _quantiles(v) for k, v in times.items()}
+    print(f"[exact] ms per cloud, {EXACT_FORWARDS} each in turns (after {EXACT_WARMUPS} warm-ups): "
+          + "; ".join(f"{k} median {v['median']:.3f}, p10 {v['p10']:.3f}, p90 {v['p90']:.3f}"
+                      for k, v in q.items()) + f"  ({smi})")
+    print(f"[exact] per forward: {launches['fwd'] // EXACT_FORWARDS} subm_conv fwd launches, "
+          f"{bq_calls // EXACT_FORWARDS} ball queries, {ccl_calls // EXACT_FORWARDS} CCLs, "
+          f"{iters / EXACT_FORWARDS:.1f} CCL iterations; proposals "
+          f"{out.proposals.num_proposals.tolist()}; counters {counters}")
+    ops = phase_exact_ops(cfg, batch, sem, off, smi)
+    phase_compare(cfg, batch, sem, off, model, out)
+    del model, model_h
+    t = lap("phase 12a (exact forward, ball query and CCL, vs CPU)", t)
+
+    pts, _ = bench_points()
+    card, cpu = inference_pair(eval_capacity_config(GAPartNetConfig(clustering_impl="exact")))
+    ptimes, plaunches = run_requests("exact predict", lambda: card.predict(pts), EXACT_PREDICTS, 1, smi)
+    req, split = timed_request(card, pts)
+    print(f"[exact predict] split (CUDA events; ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f"; proposals "
+        f"{int(req.out.proposals.num_proposals[0])}, kept {int(req.keep.sum())}; counters "
+        f"{ {k: int(v.sum()) for k, v in req.out.counters.items()} }")
+    compare_requests("exact predict", req, cpu, pts)
+    lap("phase 12a (exact predict, vs CPU)", t)
+    return dict(forward_launches=launches, forward_ms=q["exact"], hash_forward_ms=q["hash"],
+                ops=ops, predict_launches=plaunches, predict_ms=_quantiles(ptimes),
+                ccl_iterations_per_forward=iters / EXACT_FORWARDS)
+
+
+def phase_pointnet(tcfg, tbatch, tsem, toff, smi):
+    """Phase 12b: GAPartNetConfig(backbone_type="PointNet") at phase 5's
+    capacities and B = 8 batch: the forward, dgrad and wgrad kernels
+    against their plain versions at the proposal UNets' shapes of this
+    step; POINTNET_WARMUPS + POINTNET_STEPS train steps (24 / 24 / 24
+    launches per step, zero counters, a profile); one B = 2 step against the
+    CPU (phase 6's allowance); one B = 1 eval forward against the CPU
+    (phase 4's rules, the bench cloud at its fitted capacities).  Returns
+    the numbers."""
+    import torch
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.entry import bench_cloud_setup, make_model
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(tcfg, backbone_type="PointNet")
+    shapes = train_conv_shapes(cfg, None, proposal_geometry(cfg, tbatch, tsem, toff))
+    rows = phase_train_kernels(shapes, tag="pointnet train kernel", timed=False)
+    step, launches, times = phase_train(cfg, tbatch, tsem, toff, smi,
+                                        per_step=POINTNET_LAUNCHES_PER_STEP, tag="pointnet train",
+                                        warmups=POINTNET_WARMUPS, steps=POINTNET_STEPS)
+    phase_profile(step, statistics.median(times), tag="pointnet train profile",
+                  what=f"one PointNet train step (B={tbatch.batch_size})")
+    del step
+    torch.cuda.empty_cache()
+    phase_train_compare(cfg, tbatch, tsem, toff, runs=1, tag="pointnet train compare")
+    t = lap("phase 12b (PointNet training, vs CPU)", t)
+    ecfg, batch, sem, off = bench_cloud_setup(GAPartNetConfig(backbone_type="PointNet"),
+                                              device="cuda")
+    model = make_model(ecfg, "cuda", seed=0)
+    out = run_forward(model, batch, sem, off)
+    torch.cuda.synchronize()
+    counters = {k: int(v.sum()) for k, v in out.counters.items()}
+    if any(counters.values()):
+        raise AssertionError(f"PointNet eval forward: capacity counters nonzero: {counters}")
+    phase_compare(ecfg, batch, sem, off, model, out)
+    lap("phase 12b (PointNet eval forward vs CPU)", t)
+    return dict(train_launches=launches, step_ms=_quantiles(times),
+                max_abs_err={k: max(r[k]["max_abs_err"] for r in rows)
+                             for k in ("fwd", "dgrad", "wgrad")})
+
+
 def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None, fit=None,
-                dp=None):
+                dp=None, exact=None, pointnet=None):
     """The {"kernels": [...]} entries: per kernel, its launches in the main
     path's run (None when it did not run), its times summed over one B = 8
     train step (forward: with the 53 inference convs beside them, and the
     launches and times of the inference API's requests, `api`), bounds and
     errors, and its per-shape rows; with `fit`, each kernel's launches in
     phase 9's fit and frozen-trunk runs; with `dp`, each rank's launches in
-    phase 10's timed data-parallel steps and its fit."""
+    phase 10's timed data-parallel steps and its fit; with `exact` and
+    `pointnet` (phase 12), the launches of the exact-clustering forwards and
+    requests and of the PointNet train steps, added to `launches`."""
     flops = sum(r["flops"] * r["per_forward"] for r in rows)
     nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
     inference_bound, inference_by = _bound(flops, nbytes)
@@ -2700,6 +2985,26 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
                     "median_ms", "p10_ms", "p90_ms", "allreduces_per_step", "grad_bytes",
                     "allreduce_ms")}, first_step=dp[0]["step"]["first_step"],
                     fit_step_ms=[r["fit"]["step_ms"] for r in dp])
+        if exact is not None and pointnet is not None:
+            p12 = {
+                "pointnet_launches": pointnet["train_launches"][kind],
+                "pointnet_per_step": POINTNET_LAUNCHES_PER_STEP[kind],
+                "pointnet_steps": POINTNET_STEPS,
+                "pointnet_step_ms": pointnet["step_ms"],
+                "max_abs_err": pointnet["max_abs_err"][kind],
+                "work": f"{POINTNET_STEPS} PointNet train steps at B = {TRAIN_BATCH} (the proposal "
+                        f"UNets' convs); {EXACT_FORWARDS} exact-clustering forwards and "
+                        f"{EXACT_PREDICTS} exact predict requests (the 53 backbone convs each)",
+            }
+            if kind == "fwd":
+                p12.update(exact_launches=exact["forward_launches"]["fwd"],
+                           exact_predict_launches=exact["predict_launches"],
+                           exact_forward_ms=exact["forward_ms"],
+                           hash_forward_ms_in_turns=exact["hash_forward_ms"])
+            entry_["phase12"] = p12
+            entry_["launches"] += (p12["pointnet_launches"] + p12.get("exact_launches", 0)
+                                   + p12.get("exact_predict_launches", 0))
+            entry_["max_abs_err"] = max(entry_["max_abs_err"], p12["max_abs_err"])
         kernels.append(entry_)
     return kernels
 
@@ -2850,12 +3155,19 @@ def main():
     # phase 11: bf16 conv compute, bench.py's configuration (the seventh
     # slice's main path)
     bf16 = phase_bf16(statistics.median(times), smi)
-    lap("phase 11 (bf16)", t)
+    t = lap("phase 11 (bf16)", t)
+
+    # phase 12: the model's other two configurations (the ninth slice):
+    # exact clustering, and the PointNet backbone
+    torch.cuda.empty_cache()
+    exact = phase_exact(cfg, batch, cluster_sem, cluster_off, smi)
+    pointnet = phase_pointnet(tcfg, tbatch, tsem, toff, smi)
+    lap("phase 12 (exact clustering, PointNet)", t)
     lap("total", start)
 
     # phase 8: the kernel line, then the device line
     print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
-                                             train_launches, api, fit, dp)
+                                             train_launches, api, fit, dp, exact, pointnet)
                       + bf16_kernel_entries(bf16)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,8 @@ class GAPartNetConfig:
     val_min_num_points_per_proposal: int = 3
     val_nms_iou_threshold: float = 0.3
     val_ap_iou_threshold: float = 0.5
-    # clustering: the port implements "hash" only
+    # clustering: "hash" (hash-grid CCL) or "exact" (the reference's
+    # first-K ball query and list CCL; O(N^2))
     clustering_impl: str = "hash"
     # (cell, label) node-table capacity PER SET (0 = N); overflow is counted
     # in counters["ccl_node_overflow"]
@@ -110,12 +111,14 @@ class GAPartNetConfig:
 def eval_capacity_config(cfg: GAPartNetConfig) -> GAPartNetConfig:
     """The capacities of an eval forward (train/trainer.py:452).  An eval
     clusters on the sem head's predictions, which no label scan bounds (at
-    random weights they mark most points foreground): the hash-CCL node
-    cap at max_points, candidate and degree caps of 64 (the 62-offset probe
-    width, so neither truncates), twice the proposals, and a dense pool of
-    at least the original proposal cap.  (The port clusters by hash-CCL
-    only, so the hash caps always apply.)"""
+    random weights they mark most points foreground): with hash clustering
+    the hash-CCL node cap at max_points and candidate and degree caps of 64
+    (the 62-offset probe width, so neither truncates); twice the
+    proposals, and a dense pool of at least the original proposal cap.
+    (Exact clustering has no cap of its own to raise.)"""
+    if cfg.clustering_impl == "hash":
+        cfg = dataclasses.replace(cfg, hash_node_capacity=cfg.max_points, hash_cand_cap=64,
+                                  hash_max_degree=64)
     return dataclasses.replace(
-        cfg, hash_node_capacity=cfg.max_points, hash_cand_cap=64, hash_max_degree=64,
-        max_proposals=2 * cfg.max_proposals,
+        cfg, max_proposals=2 * cfg.max_proposals,
         dense_grid_capacity=max(cfg.dense_grid_capacity, cfg.max_proposals))

@@ -8,8 +8,11 @@ instances, NPCS and part boxes out.
 Without an input it runs on the committed real cloud assets/bench_cloud.npz.
 `--rgb` is an (H, W, 3) uint8 array in BGR order, as cv2 reads images.
 Without `--weights` (a state_dict saved with torch.save) the weights are
-random, drawn from `--seed`.  Prints a one-line summary and writes the
-result to <out>/demo_result.npz.
+random, drawn from `--seed`.  Prints a one-line summary, writes the
+result to <out>/demo_result.npz and, as the JAX demo does, five panels
+(pc, sem_pred, ins_pred, npcs_pred, bbox_pred) and their grid under
+<out>/demo/ through utils/visu.py.  Writing the panels needs cv2; without
+it the demo says so in one line and writes the result only.
 """
 
 import argparse
@@ -34,23 +37,34 @@ def main(argv=None):
 
     from gapartnet_tpu_torch.config import GAPartNetConfig
     from gapartnet_tpu_torch.data.loader import load_cloud_file
-    from gapartnet_tpu_torch.infer.api import GAPartNetInference
+    from gapartnet_tpu_torch.infer.api import (
+        GAPartNetInference,
+        backproject_depth,
+        ball_space_normalize,
+    )
+    from gapartnet_tpu_torch.utils import visu
 
     cfg = GAPartNetConfig()
     # real clouds overflow the divisor-schedule voxel capacities at the mid
     # levels: size them from the input
     infer = GAPartNetInference(cfg=cfg, state_dict=args.weights or None, seed=args.seed,
                                auto_capacity=True, device=args.device)
-    extra = {}
+    extra, trans = {}, None
     if args.depth:
         if not args.K:
             ap.error("--depth needs --K")
+        depth, k = np.load(args.depth), np.load(args.K)
         rgb = np.load(args.rgb) if args.rgb else None
-        result, idx, trans = infer.predict_depth(np.load(args.depth), np.load(args.K), rgb)
+        result, idx, trans = infer.predict_depth(depth, k, rgb)
         extra = dict(point_index=idx, trans=trans)
+        xyz, colors, _ = backproject_depth(depth, k, rgb)
+        pts = np.concatenate([ball_space_normalize(xyz[idx])[0],
+                              colors[idx] if colors is not None else np.zeros((len(idx), 3))],
+                             axis=1)
     else:
         d = load_cloud_file(args.points or str(BENCH_CLOUD))
-        result = infer.predict(d["points"][: cfg.max_points])
+        pts = d["points"][: cfg.max_points]
+        result = infer.predict(pts)
 
     print(f"[demo] {int((result.ins_preds > 0).sum())} part points, "
           f"{len(result.bboxes)} bboxes, "
@@ -63,6 +77,17 @@ def main(argv=None):
              proposal_classes=result.proposal_classes,
              bboxes=np.asarray(result.bboxes, np.float32).reshape(-1, 8, 3), **extra)
     print(f"[demo] wrote {os.path.abspath(path)}")
+    if not visu.have_cv2():
+        print("[demo] no panels written: cv2 (opencv-python), which draws and writes them, "
+              "is not installed")
+        return
+    panels = visu.visualize_gapartnet(
+        save_root=args.out, name="demo", split="demo", points=pts, trans=trans,
+        sem_preds=result.sem_preds, ins_preds=result.ins_preds, npcs_preds=result.npcs_map,
+        bboxes=result.bboxes,
+        save_option=("pc", "sem_pred", "ins_pred", "npcs_pred", "bbox_pred"),
+    )
+    print(f"[demo] wrote {len(panels)} panels under {os.path.abspath(args.out)}")
 
 
 if __name__ == "__main__":

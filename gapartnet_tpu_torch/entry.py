@@ -29,6 +29,7 @@ from gapartnet_tpu_torch.data.capacity import (
 from gapartnet_tpu_torch.data.instances import generate_instance_info
 from gapartnet_tpu_torch.data.synthetic import synthetic_batch
 from gapartnet_tpu_torch.models.gapartnet import GAPartNet
+from gapartnet_tpu_torch.models.grouping import cluster_single
 from gapartnet_tpu_torch.structures import PointCloudBatch
 from gapartnet_tpu_torch.train.loop import adam, train_step
 from gapartnet_tpu_torch.weights import init_weights
@@ -112,16 +113,40 @@ def _overrides(xyz: np.ndarray, centers: np.ndarray, ins: np.ndarray) -> np.ndar
     return np.where((ins >= 0)[:, None], centers - xyz.astype(np.float64), 0.0).astype(np.float32)
 
 
+def _exact_proposals(cfg: GAPartNetConfig, xyz: np.ndarray, sem: np.ndarray, off: np.ndarray,
+                     device) -> dict:
+    """With exact clustering, the proposal cap and the dense pool from the
+    proposals that the exact clustering of this cloud under the overrides
+    keeps (models/grouping.cluster_single, run on `device`): max_proposals
+    at least the kept count (rounded up to 8), the dense pool twice it.
+    The hash rules of `_fitted_capacities` count the hash graph's
+    components, which the first-K neighbour caps split further."""
+    n = len(xyz)
+    sem_t = torch.as_tensor(sem.astype(np.int32), device=device)
+    prop = cluster_single(
+        torch.as_tensor(xyz, device=device), torch.as_tensor(off, device=device), sem_t,
+        sem_t > 0, cfg.ball_query_radius, cfg.min_num_points_per_proposal, 2 * n,
+        impl="exact", max_num_points_per_query=cfg.max_num_points_per_query,
+        max_num_points_per_query_shift=cfg.max_num_points_per_query_shift)
+    live = int(prop.num_proposals)
+    return dict(max_proposals=max(cfg.max_proposals, -(-live // 8) * 8),
+                dense_grid_capacity=max(-(-(2 * live) // 8) * 8, 16))
+
+
 def bench_cloud_setup(cfg: GAPartNetConfig, path=BENCH_CLOUD, device="cuda", batch_size: int = 1):
     """(cfg with capacities fitted to the cloud, batch, cluster_sem,
     cluster_off) for the committed 20000-point real cloud, tiled
-    `batch_size` times.  Capacities follow `_fitted_capacities`; the
-    overrides are the ground-truth labels and the offsets to instance
+    `batch_size` times.  Capacities follow `_fitted_capacities` (with
+    exact clustering, the proposal cap and dense pool `_exact_proposals`);
+    the overrides are the ground-truth labels and the offsets to instance
     centres (the load a trained head produces)."""
     d = np.load(path)
     pts = np.concatenate([d["xyz"], d["rgb"]], axis=1).astype(np.float32)
     sem, ins = d["sem_labels"], d["instance_labels"]
     fields, centers = _fitted_capacities(cfg, d["xyz"], sem, ins)
+    if cfg.clustering_impl == "exact":
+        fields.update(_exact_proposals(cfg, d["xyz"].astype(np.float32), sem,
+                                       _overrides(d["xyz"], centers, ins), device))
     cfg = dataclasses.replace(cfg, **fields)
     batch = PointCloudBatch(
         points=torch.as_tensor(np.tile(pts[None], (batch_size, 1, 1)), device=device),

@@ -11,6 +11,12 @@ package: `do_cluster`, `do_score`, `do_npcs`.  With labels in the batch the
 forward also returns the five losses, the IoUs against ground truth and
 the two accuracies; outputs a run does not produce are None.
 
+The backbone is the SparseUNet on the input voxel grid or, with
+`backbone_type="PointNet"`, models/pointnet.py on the points themselves
+(no voxel grid, so no `backbone_voxels_dropped` counter).  Clustering is
+the hash-grid CCL or, with `clustering_impl="exact"`, the reference's
+first-K ball query and list CCL (models/grouping.py).
+
 `frozen_bn` names the modules whose BatchNorms normalize with their running
 statistics in a training forward, as the JAX model's `frozen_bn` does: it
 reaches the backbone and `offset_bn` only, so the proposal UNets of a frozen
@@ -59,6 +65,7 @@ from gapartnet_tpu_torch.models.grouping import (
     stack_proposals,
 )
 from gapartnet_tpu_torch.models.norm import MaskedBatchNorm
+from gapartnet_tpu_torch.models.pointnet import PointNetSegBackbone
 from gapartnet_tpu_torch.ops.iou import instance_seg_iou
 from gapartnet_tpu_torch.ops.segment import segment_max, segment_mean, segment_min
 from gapartnet_tpu_torch.ops.sparse_conv import GridHierarchy, build_hierarchy
@@ -155,10 +162,10 @@ class GAPartNet(nn.Module):
 
     def __init__(self, cfg: GAPartNetConfig):
         super().__init__()
-        if cfg.backbone_type != "SparseUNet":
-            raise NotImplementedError(f"backbone {cfg.backbone_type} is not ported")
-        if cfg.clustering_impl != "hash":
-            raise NotImplementedError(f"clustering {cfg.clustering_impl} is not ported")
+        if cfg.backbone_type not in ("SparseUNet", "PointNet"):
+            raise ValueError(f"unknown backbone_type {cfg.backbone_type}")
+        if cfg.clustering_impl not in ("hash", "exact"):
+            raise ValueError(f"unknown clustering_impl {cfg.clustering_impl}")
         if cfg.proposal_conv_impl not in ("auto", "dense", "sparse"):
             raise ValueError(f"unknown proposal_conv_impl {cfg.proposal_conv_impl}")
         if cfg.conv_compute_dtype not in ("float32", "bfloat16"):
@@ -167,8 +174,11 @@ class GAPartNet(nn.Module):
         c = cfg.num_part_classes
         fea = cfg.channels[0]
         cd = compute_dtype(cfg)
-        self.backbone = SparseUNet(cfg.in_channels, cfg.channels, cfg.block_repeat,
-                                   compute_dtype=cd)
+        if cfg.backbone_type == "PointNet":
+            self.backbone = PointNetSegBackbone(fea, cfg.in_channels)
+        else:
+            self.backbone = SparseUNet(cfg.in_channels, cfg.channels, cfg.block_repeat,
+                                       compute_dtype=cd)
         self.sem_seg_head = nn.Linear(fea, c)
         self.offset_mlp0 = nn.Linear(fea, fea)
         self.offset_bn = MaskedBatchNorm(fea)
@@ -234,15 +244,20 @@ class GAPartNet(nn.Module):
         has_labels = batch.sem_labels is not None
         losses = {k: zero for k in ModelOutput.LOSSES} if has_labels else {}
 
-        # input grid + backbone
-        keys, vfeats, nvox, pc_voxel_id = prepare_input_grid(points, point_mask, cfg)
-        hierarchy = build_hierarchy(
-            keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent
-        )
-        counters["backbone_voxels_dropped"] = sum(ds.num_dropped for ds in hierarchy.downsamples)
+        # backbone: the SparseUNet on the input voxel grid, or PointNet on
+        # the points (no grid, so no backbone counter, as in the JAX model)
         with _running_stats(self.backbone, "backbone" in frozen_bn):
-            voxel_out = self.backbone(vfeats.contiguous(), hierarchy)
-        pc_feats = _gather_rows(voxel_out, pc_voxel_id, pc_voxel_id >= 0)   # (B, N, fea)
+            if cfg.backbone_type == "PointNet":
+                pc_feats = self.backbone(points, point_mask)                # (B, N, fea)
+            else:
+                keys, vfeats, nvox, pc_voxel_id = prepare_input_grid(points, point_mask, cfg)
+                hierarchy = build_hierarchy(
+                    keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent
+                )
+                counters["backbone_voxels_dropped"] = sum(
+                    ds.num_dropped for ds in hierarchy.downsamples)
+                voxel_out = self.backbone(vfeats.contiguous(), hierarchy)
+                pc_feats = _gather_rows(voxel_out, pc_voxel_id, pc_voxel_id >= 0)
 
         # semantic head
         sem_logits = self.sem_seg_head(pc_feats)
@@ -303,7 +318,9 @@ class GAPartNet(nn.Module):
                     pt_xyz[i], offs[i], cluster_sem[i], cluster_valid[i],
                     cfg.ball_query_radius, cfg.min_num_points_per_proposal, cfg.max_proposals,
                     hash_node_capacity=node_cap, hash_cand_cap=cfg.hash_cand_cap,
-                    hash_max_degree=cfg.hash_max_degree,
+                    hash_max_degree=cfg.hash_max_degree, impl=cfg.clustering_impl,
+                    max_num_points_per_query=cfg.max_num_points_per_query,
+                    max_num_points_per_query_shift=cfg.max_num_points_per_query_shift,
                 )
                 for i in range(b)
             ])

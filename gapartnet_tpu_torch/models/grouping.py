@@ -1,8 +1,9 @@
 """Dual-set proposal clustering and proposal re-voxelization.
 
-Counterpart of models/grouping.py: `cluster_single` with the hash
-implementation, `proposal_cube_coords`, `segmented_voxelize_single` (the
-sparse proposal grid of the train path) and
+Counterpart of models/grouping.py: `cluster_single` with both
+implementations (the hash-grid CCL, and the reference's "exact" first-K
+ball query with list CCL), `proposal_cube_coords`,
+`segmented_voxelize_single` (the sparse proposal grid of the train path) and
 `segmented_dense_voxelize_single` (the dense grid of the eval path).  Every
 sample owns exactly 2N proposal "entries" (each valid point appears once
 per clustering set) and at most P proposals; everything downstream indexes
@@ -13,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from gapartnet_tpu_torch.ops.ball_query import ball_query_single
+from gapartnet_tpu_torch.ops.ccl import connected_components_single
 from gapartnet_tpu_torch.ops.hash_ccl import hash_connected_components
 from gapartnet_tpu_torch.ops.segment import segment_max, segment_min, segment_sum
 from gapartnet_tpu_torch.ops.voxelize import dedup_keys, div_const, pack_coords
@@ -56,27 +59,46 @@ def cluster_single(
     hash_node_capacity: int = 0,
     hash_cand_cap: int = 0,
     hash_max_degree: int = 24,
+    impl: str = "hash",
+    max_num_points_per_query: int = 50,
+    max_num_points_per_query_shift: int = 300,
 ) -> SampleProposals:
-    """One sample: both sets (xyz and xyz + offsets) in one hash-CCL call,
-    then compact proposal ids and drop proposals below the min-points
-    filter.  Proposal numbering follows ascending (set, component label)."""
+    """One sample: cluster both sets (xyz and xyz + offsets), then compact
+    proposal ids and drop proposals below the min-points filter.  Proposal
+    numbering follows ascending (set, component label).
+
+    impl="hash": both sets in one hash-CCL call.  impl="exact": per set a
+    first-K ball query (K = max_num_points_per_query on xyz,
+    max_num_points_per_query_shift on xyz + offsets) and list CCL, the
+    reference's neighbour semantics; its two CCL counters are zero."""
     dev = pt_xyz.device
     n = pt_xyz.shape[0]
     i32 = torch.int32
-    both = torch.cat([pt_xyz, pt_xyz + offsets])
-    set_mask = torch.arange(2 * n, device=dev) >= n
-    lab, ccl_overflow, ccl_cand_truncated = hash_connected_components(
-        both,
-        torch.cat([sem_preds, sem_preds]).to(i32),
-        torch.cat([valid, valid]),
-        ball_query_radius,
-        node_capacity=2 * hash_node_capacity if hash_node_capacity else 0,
-        set_mask=set_mask,
-        cand_cap=hash_cand_cap,
-        max_degree=hash_max_degree,
-    )
-    # components never span sets, so set-2 labels map back by -n
-    lab1, lab2 = lab[:n], lab[n:] - n
+    if impl == "hash":
+        both = torch.cat([pt_xyz, pt_xyz + offsets])
+        set_mask = torch.arange(2 * n, device=dev) >= n
+        lab, ccl_overflow, ccl_cand_truncated = hash_connected_components(
+            both,
+            torch.cat([sem_preds, sem_preds]).to(i32),
+            torch.cat([valid, valid]),
+            ball_query_radius,
+            node_capacity=2 * hash_node_capacity if hash_node_capacity else 0,
+            set_mask=set_mask,
+            cand_cap=hash_cand_cap,
+            max_degree=hash_max_degree,
+        )
+        # components never span sets, so set-2 labels map back by -n
+        lab1, lab2 = lab[:n], lab[n:] - n
+    elif impl == "exact":
+        nbr1, _ = ball_query_single(pt_xyz, sem_preds, valid, ball_query_radius,
+                                    max_num_points_per_query)
+        lab1 = connected_components_single(nbr1, valid)
+        nbr2, _ = ball_query_single(pt_xyz + offsets, sem_preds, valid, ball_query_radius,
+                                    max_num_points_per_query_shift)
+        lab2 = connected_components_single(nbr2, valid)
+        ccl_overflow = ccl_cand_truncated = torch.zeros((), dtype=i32, device=dev)
+    else:
+        raise ValueError(f"unknown clustering impl {impl}")
 
     m = 2 * n
     dump = torch.full_like(lab1, m)

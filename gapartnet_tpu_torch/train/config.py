@@ -64,7 +64,7 @@ class TrainerConfig:
     val_every_n_epochs: int = 1
     use_wandb: bool = False
     debug: bool = True
-    # test-time visualization (not ported: ROADMAP Queue 1 item 14)
+    # test-time renders (trainer.visualize_samples; writing them needs cv2)
     visualize: bool = False
     visualize_dir: str = "visu"
     visualize_sample_num: int = 10

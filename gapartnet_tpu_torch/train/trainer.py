@@ -15,8 +15,13 @@ Metrics stay on the device as tensors and come to the host once per epoch
 
 Checkpoints are `torch.save` files (model and optimizer state_dicts, step,
 epoch, gstep and the jitter generator's state), read with
-`torch.load(weights_only=True)`.  Not ported: the test-time renders
-(`trainer.visualize`; ROADMAP Queue 1 item 14).
+`torch.load(weights_only=True)`.
+
+With `trainer.visualize`, an evaluation with the instance stages renders
+its first `visualize_sample_num` clouds per split through utils/visu.py
+(`visualize_samples`: the JAX trainer's 12 panels and grid under
+`visualize_dir`).  Writing the images needs cv2; without it such a run is
+refused before it starts.
 
 Data parallel (one process per card under `torchrun`, parallel/dist.py),
 as the JAX trainer runs over processes: every split's files are sharded
@@ -51,13 +56,16 @@ from gapartnet_tpu_torch.data.loader import GAPartNetDataset, collate, shard_fil
 from gapartnet_tpu_torch.entry import make_model, use_fp32_math
 from gapartnet_tpu_torch.eval.ap import APEvaluator, _proposal_pred_classes, select_eval_proposals
 from gapartnet_tpu_torch.ops.segment import segment_sum
+from gapartnet_tpu_torch.ops.umeyama import ransac_pose_from_npcs, ransac_samples
 from gapartnet_tpu_torch.parallel import dist as pdist
 from gapartnet_tpu_torch.structures import PointCloudBatch
 from gapartnet_tpu_torch.train.config import Config
 from gapartnet_tpu_torch.train.loop import adam, eval_step, stage_flags, train_step
+from gapartnet_tpu_torch.utils import visu
 
 SPLITS = ("val", "test_intra", "test_inter")
-# the counters of an eval forward without and with the instance stages
+# the counters of an eval forward without and with the instance stages (the
+# PointNet backbone has no voxel grid, so no backbone counter)
 EVAL_COUNTERS = {
     False: ("backbone_voxels_dropped",),
     True: ("backbone_voxels_dropped", "ccl_cand_truncated", "ccl_node_overflow",
@@ -68,6 +76,11 @@ TRAIN_COUNTERS = {
     True: ("backbone_voxels_dropped", "ccl_cand_truncated", "ccl_node_overflow",
            "dropped_proposals", "proposal_voxels_dropped"),
 }
+
+
+def _counters(table, flag: bool, backbone_type: str):
+    return tuple(c for c in table[flag]
+                 if not (backbone_type == "PointNet" and c == "backbone_voxels_dropped"))
 
 
 def run_name(cfg: Config) -> str:
@@ -426,26 +439,99 @@ def eval_metric_names(cfg: Config, do_instance: bool) -> List[str]:
     keys = []
     for split in SPLITS:
         keys += [f"{split}/{m}" for m in per_split]
-        keys += [f"{split}/counters/{c}" for c in EVAL_COUNTERS[do_instance]]
+        keys += [f"{split}/counters/{c}"
+                 for c in _counters(EVAL_COUNTERS, do_instance, cfg.model.backbone_type)]
     keys += [f"monitor_metrics/mean_{m}" for m in ("all_accu", "pixel_accu", "imou", "AP@50", "mAP")]
     return keys
 
 
-def train_metric_names(do_cluster: bool) -> List[str]:
+def train_metric_names(do_cluster: bool, backbone_type: str = "SparseUNet") -> List[str]:
     """The names of an epoch's training line (besides `step`)."""
     names = ["train_loss/total_loss"] + [
         f"train_loss/{k}" for k in ("loss_sem_seg", "loss_offset_dist", "loss_offset_dir",
                                     "loss_prop_score", "loss_prop_npcs")]
     names += ["train_all_accu", "train_pixel_accu"]
-    names += [f"train_counters/{c}" for c in TRAIN_COUNTERS[do_cluster]]
+    names += [f"train_counters/{c}" for c in _counters(TRAIN_COUNTERS, do_cluster, backbone_type)]
     return names + ["epoch", "epoch_time_s"]
 
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.trainer.visualize:
-        raise NotImplementedError(
-            "trainer.visualize: the test-time renders need utils/visu.py, which is not ported "
-            "yet (ROADMAP Queue 1 item 14)")
+    if cfg.trainer.visualize and not visu.have_cv2():
+        raise RuntimeError("trainer.visualize: writing the panels needs cv2, which is not "
+                           "installed; set trainer.visualize false or install opencv-python")
+
+
+def _fit_box(npcs: np.ndarray, xyz: np.ndarray, seed: int):
+    """One RANSAC pose fit on the CPU (ops/umeyama, samples drawn from a
+    generator seeded with `seed`); the (8, 3) box, or None if not ok."""
+    mask = torch.ones(len(xyz), dtype=torch.bool)
+    samples = ransac_samples(mask, 100, torch.Generator().manual_seed(seed))
+    fit = ransac_pose_from_npcs(torch.from_numpy(npcs).float(), torch.from_numpy(xyz).float(),
+                                mask, samples)
+    return fit.bbox.numpy() if bool(fit.ok) else None
+
+
+def visualize_samples(out, keep, batch: PointCloudBatch, cfg: Config, split: str,
+                      limit: int) -> int:
+    """Test-time renders (the JAX trainer's visualize_samples, the
+    reference's on_test_epoch_end, model.py:930-999): for each real cloud
+    of the batch, up to `limit`, the 12 panels of utils/visu.py under
+    `trainer.visualize_dir`/`split`: predicted classes, the kept proposals
+    as instances (`keep` (B, P), in rank order) with their NPCS, boxes
+    fitted by RANSAC to the predicted NPCS (proposals of more than 10
+    points) and to the ground truth's (instances of more than 10 points).
+    The fits run on the CPU with seeded samples (seed: the proposal's rank,
+    the instance's id).  Returns the number of clouds rendered."""
+    out, batch_h = cpu_tree(out), cpu_tree(batch)
+    prop = out.proposals
+    keep = keep.cpu().numpy()
+    ep, pid, em = (prop.entry_point.numpy(), prop.entry_proposal.numpy(),
+                   prop.entry_mask.numpy())
+    npcs = out.npcs_preds.numpy() if out.npcs_preds is not None else None
+    pts = batch_h.points.numpy()
+    pmask = batch_h.point_mask.numpy()
+    gt_npcs = batch_h.gt_npcs.numpy() if batch_h.gt_npcs is not None else None
+    ins_gt = batch_h.instance_labels.numpy() if batch_h.instance_labels is not None else None
+    sem_gt = batch_h.sem_labels.numpy() if batch_h.sem_labels is not None else None
+    n = pts.shape[1]
+    count = 0
+    for bi in range(pts.shape[0]):
+        if count >= limit or (batch.pc_ids and batch.pc_ids[bi] == "__pad__"):
+            continue
+        ins_map = np.zeros(n, np.int64)
+        npcs_map = np.full((n, 3), 230.0 / 255.0, np.float32)
+        gt_bboxes, bboxes = [], []
+        if gt_npcs is not None and ins_gt is not None:
+            for gi in np.unique(ins_gt[bi][pmask[bi]]):
+                sel = pmask[bi] & (ins_gt[bi] == gi)
+                if gi < 0 or sel.sum() <= 10:
+                    continue
+                box = _fit_box(gt_npcs[bi][sel], pts[bi, sel, :3], int(gi))
+                if box is not None:
+                    gt_bboxes.append(box)
+        for rank, p in enumerate(np.nonzero(keep[bi])[0]):
+            sel = em[bi] & (pid[bi] == p)
+            idxs = ep[bi][sel]
+            ins_map[idxs] = rank + 1
+            if npcs is not None:
+                npcs_map[idxs] = npcs[bi][sel]
+                if len(idxs) > 10:
+                    box = _fit_box(npcs[bi][sel] - 0.5, pts[bi, idxs, :3], rank)
+                    if box is not None:
+                        bboxes.append(box)
+        visu.visualize_gapartnet(
+            save_root=cfg.trainer.visualize_dir,
+            name=batch.pc_ids[bi] if batch.pc_ids else f"sample_{bi}",
+            split=split, points=pts[bi], sem_preds=out.sem_preds.numpy()[bi],
+            ins_preds=ins_map, npcs_preds=npcs_map, bboxes=bboxes,
+            sem_gt=sem_gt[bi] if sem_gt is not None else None,
+            ins_gt=ins_gt[bi] if ins_gt is not None else None,
+            npcs_gt=gt_npcs[bi] + 0.5 if gt_npcs is not None else None,
+            gt_bboxes=gt_bboxes, save_option=visu.ALL_SAVE_OPTIONS,
+            raw_img_root=cfg.trainer.visualize_raw_root,
+        )
+        count += 1
+    return count
 
 
 def evaluate_splits(model, cfg: Config, datasets, epoch: int, logger: MetricLogger, step: int,
@@ -479,13 +565,21 @@ def evaluate_splits(model, cfg: Config, datasets, epoch: int, logger: MetricLogg
         accu_sum, pix_sum, batches = 0.0, 0.0, 0
         counter_sums: Dict[str, float] = {}
         pending = []
+        visualized = 0
         for batch in Prefetcher(
             _iter_batches(ds, cfg.data.val_batch_size, drop_last=False,
                           workers=cfg.data.num_workers),
             transform=lambda raw: PointCloudBatch.from_numpy(raw, device),
         ):
-            pending.append((reduced_step(batch), batch.instance_sem_labels))
+            r = reduced_step(batch)
+            pending.append((r, batch.instance_sem_labels))
             batches += 1
+            if (do_instance and cfg.trainer.visualize
+                    and visualized < cfg.trainer.visualize_sample_num):
+                # the full outputs of the same eval forward, for the renders
+                out = eval_step(model, batch, do_cluster=True, do_score=True, do_npcs=True)
+                visualized += visualize_samples(out, r["keep"], batch, cfg, split,
+                                                cfg.trainer.visualize_sample_num - visualized)
         if batches == 0:
             continue
         for r, inst_sem_labels in host_copy(pending):

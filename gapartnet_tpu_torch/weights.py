@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from gapartnet_tpu_torch.models.norm import MaskedBatchNorm
+from gapartnet_tpu_torch.models.pointnet import STN
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -55,14 +56,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Conv kernels: He-uniform over fan_in = prod(shape[:-1]) (the JAX
     package's `_kernel_init`); Linear weights: normal with std
-    1 / sqrt(fan_in) and zero bias; batch norms: unit scale, zero shift,
+    1 / sqrt(fan_in) and zero bias, but zero for the `fc3` of a PointNet
+    transformer (models/pointnet.STN); batch norms: unit scale, zero shift,
     running statistics (0, 1)."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
                 w = torch.randn(mod.weight.shape, generator=generator) / mod.in_features ** 0.5
                 mod.weight.copy_(w)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, MaskedBatchNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -74,4 +77,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 bound = (6.0 / fan_in) ** 0.5
                 u = torch.rand(p.shape, generator=generator) * (2 * bound) - bound
                 p.copy_(u)
+        # a PointNet transformer's last layer starts at zero (flax
+        # kernel_init=zeros): identity transforms at init
+        for mod in model.modules():
+            if isinstance(mod, STN):
+                mod.fc3.weight.zero_()
     return model

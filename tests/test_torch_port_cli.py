@@ -1,8 +1,8 @@
 """The port's trainer as users run it: `fit` then `test` through the CLI
 in a subprocess with jax, flax and PyYAML blocked (metric names,
-checkpoints, printed test metrics), the CLI's default device, the refused
-`trainer.visualize`, and a resumed CPU fit bitwise equal to an
-uninterrupted one."""
+checkpoints, printed test metrics), the CLI's default device,
+`trainer.visualize` refused without cv2, and a resumed CPU fit bitwise
+equal to an uninterrupted one."""
 
 import os
 import subprocess
@@ -75,10 +75,14 @@ def test_cli_defaults_to_the_card(data_root, tmp_path):
         cli.main(["test", "-c", str(_config_file(tmp_path, data_root))])
 
 
-def test_visualize_is_refused(data_root, tmp_path):
+def test_visualize_is_refused(data_root, tmp_path, monkeypatch):
+    """`trainer.visualize` is refused before the run starts where cv2,
+    which writes the panels, is missing (as on the card's machine);
+    tests/test_torch_port_visu.py runs it with cv2."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
     cfg = _port_cfg(tmp_path, data_root, tmp_path)
     cfg.trainer.visualize = True
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(RuntimeError, match="needs cv2"):
         ttrainer.test(cfg, device="cpu")
 
 

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax, flax nor the JAX
-package, and neither does chip_smoke.py."""
+package, and neither does chip_smoke.py; every module also imports without
+PyYAML and cv2, which the card's machine lacks."""
 
 import ast
 import subprocess
@@ -15,6 +16,7 @@ import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["yaml"] = None
+sys.modules["cv2"] = None
 import importlib, pkgutil
 import gapartnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gapartnet_tpu_torch.__path__, "gapartnet_tpu_torch.")]
@@ -52,6 +54,12 @@ def test_inference_slice_modules_exist():
 def test_trainer_slice_modules_exist():
     for name in ("train/config.py", "train/yaml_reader.py", "train/trainer.py", "train/cli.py",
                  "train/ckpt_convert.py", "data/capacity.py"):
+        assert (PORT / name).exists(), name
+
+
+def test_configurations_slice_modules_exist():
+    for name in ("ops/ball_query.py", "ops/ccl.py", "models/pointnet.py", "ops/pointnet2.py",
+                 "models/pointnet2_modules.py", "utils/visu.py"):
         assert (PORT / name).exists(), name
 
 

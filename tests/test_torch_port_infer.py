@@ -150,7 +150,8 @@ def test_knn_classifier_matches(tmp_path):
                                   np.load(tmp_path / "j.npz")["labels"])
 
 
-@pytest.mark.parametrize("over", [{}, SMALL, dict(max_proposals=40, dense_grid_capacity=48)])
+@pytest.mark.parametrize("over", [{}, SMALL, dict(max_proposals=40, dense_grid_capacity=48),
+                                  dict(clustering_impl="exact")])
 def test_eval_capacity_config_matches(over):
     """The eval capacities equal train/trainer.py's eval_capacity_config."""
     want = jax_eval_capacity_config(JaxConfig(**over))

@@ -148,14 +148,15 @@ def check_stats(tm, new_bs):
                                    err_msg=name)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    d = synthetic_batch(np.random.RandomState(0), batch_size=2, num_points=512,
+def small_setup(batch_size=2, **over):
+    """(JAX model, its variables with random batch statistics, JAX batch,
+    port batch, cluster_sem, cluster_off) at SMALL with `over` applied."""
+    d = synthetic_batch(np.random.RandomState(0), batch_size=batch_size, num_points=512,
                         num_parts=4, max_instances=8)
     ids = d.pop("pc_ids")
     jbatch = JaxBatch(**{k: jnp.asarray(v) for k, v in d.items()}, pc_ids=ids)
     tbatch = PointCloudBatch.from_numpy(d, "cpu")
-    jm = JaxModel(JaxConfig(**SMALL))
+    jm = JaxModel(JaxConfig(**SMALL, **over))
     variables = jax.jit(lambda b: jm.init(
         {"params": jax.random.PRNGKey(0), "proposal_jitter": jax.random.PRNGKey(1)},
         b, train=False, do_cluster=True, do_score=True, do_npcs=True))(jbatch)
@@ -166,6 +167,11 @@ def setup():
     off = np.where((inst >= 0)[..., None],
                    d["instance_regions"][..., :3] - d["points"][..., :3], 0).astype(np.float32)
     return jm, variables, jbatch, tbatch, d["sem_labels"].astype(np.int32), off
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return small_setup()
 
 
 def _port_model(variables):
