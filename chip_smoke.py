@@ -64,7 +64,7 @@ source, in parallel), then:
      1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
   8. prints the wall time of each phase, one {"kernels": [...]} JSON line
      (the fp32 kernels, then the bf16 ones), the nvidia-smi line and, last,
-     the device line {"ok": true, "device": {...}}, after phase 12;
+     the device line {"ok": true, "device": {...}}, after phase 13;
   9. the trainer (the fifth slice's main path), in a temporary directory:
      a dataset of assets/bench_cloud.npz rotated about z (48 train clouds,
      3 per eval split, so each eval split ends in a padded batch);
@@ -138,10 +138,11 @@ source, in parallel), then:
      difference on as flipped bf16 roundings); train_step at B = 8 (3
      warm-ups, 20 timed, 77 / 76 / 77 bf16 launches and no fp32 one, zero
      counters, moving losses and statistics, a profile), then 5 fp32 and
-     5 bf16 steps in turns; one card step
-     against the CPU step at B = 2 with phase 6's allowance, plus the
-     probes' move for losses and running statistics, and for gradients
-     BF16_KINK_FACTOR times the probes' move and one bf16 ulp of scale;
+     5 bf16 steps in turns; one card step, with PyTorch's deterministic
+     scatter-adds, against the CPU step at B = 2 with phase 6's allowance,
+     plus the probes' move for losses and running statistics, and for
+     gradients BF16_KINK_FACTOR times the probes' move and one bf16 ulp of
+     scale (--compare-draws N: this check over N draws, then stop);
  12. the model's other two configurations (the ninth slice's main path):
      12a, exact clustering (GAPartNetConfig(clustering_impl="exact"), the
      reference's first-K ball query and list CCL, ops/ball_query.py and
@@ -159,12 +160,36 @@ source, in parallel), then:
      "PointNet")) at phase 5's B = 8 batch and capacities: the forward,
      dgrad and wgrad kernels against their plain versions at the proposal
      UNets' shapes of this step, 2 warm-ups and 10 timed train steps (24 /
-     24 / 24 launches per step, zero counters), a profiled step, one B = 2
-     step against the CPU (phase 6's allowance, with phase 11's terms for
-     rounding-sensitive steps but the bf16 ulp: the transformers' fc
-     BatchNorms take E[x^2] - mean^2 over the B rows) and one B = 1 eval
-     forward against the CPU (phase 4's rules).  The kernel line adds
-     phase 12's launches to the fp32 kernels' counts.
+     24 / 24 launches per step, zero counters), a profiled step, one
+     deterministic B = 2 step against the CPU (phase 6's allowance, with
+     phase 11's terms for rounding-sensitive steps but the bf16 ulp: the
+     transformers' fc BatchNorms take E[x^2] - mean^2 over the B rows) and
+     one B = 1 eval forward against the CPU (phase 4's rules).  The kernel
+     line adds phase 12's launches to the fp32 kernels' counts;
+ 13. dataset generation -> predict_depth -> train steps (the tenth slice's
+     main path), at the JAX defaults (800 x 800 views, 1,000,000 surface
+     samples, 20000 points, GAPartNetConfig()), in a temporary directory:
+     13a, datagen/synthetic.generate_assets writes a Box, a Remote and a
+     Microwave; one view of each is rendered without SAPIEN
+     (datagen/assets.render_view_maps: host render ms, foreground pixels)
+     and its foreground sampled by FPS on the card (ms); render_asset_view
+     of the view with the fewest foreground pixels, once with FPS on the
+     card and once on the CPU: every array of the two .npz files equal,
+     FPS indices included; 13b, predict_depth on a rendered view through
+     the demo's --asset path (demo.asset_request; seeded random weights,
+     auto_capacity): 53 forward launches, the forward kernel against its
+     plain version on this request's hierarchy, the counters and the stage
+     split; 13c, ingest_asset (FPS on the card) until 4 clouds, loaded
+     through GAPartNetDataset with the native instance statistics
+     (data/native_loader.py, built with g++) and held equal to the plain
+     NumPy version's items; the forward, dgrad and wgrad kernels against
+     their plain versions at this batch's shapes; 1 warm-up and 3 train
+     steps at B = 4 (fp32, all three stages, phase 5's clustering
+     overrides) timed by utils/profiling.StepTimer around a synchronize,
+     77 / 76 / 77 launches per step, zero counters, finite losses; one
+     more step traced by utils/profiling.maybe_trace, whose Chrome trace
+     must name the subm-conv kernels; device_memory_stats().  The kernel
+     line adds phase 13's launches to the fp32 kernels' counts.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -354,6 +379,9 @@ BF16_ULP = 2.0 ** -7
 # to 2.6 times the largest of four probes (a BatchNorm bias of the NPCS
 # UNet, on an H100 80GB HBM3 at 700 W)
 BF16_KINK_FACTOR = 4.0
+# cuBLAS's setting for deterministic results under
+# torch.use_deterministic_algorithms (deterministic_ops)
+CUBLAS_WORKSPACE = ":4096:8"
 # card vs CPU forward at bf16: the CPU also runs once per seed with every
 # BatchNorm output moved by +-1 fp32 ulp (what another fp32 rounding does)
 NET_PROBES = (11, 12)
@@ -998,6 +1026,26 @@ def _train_pass(cfg, sub, dev, cluster_sem, cluster_off, jitter, probe=None):
     return model, out, b
 
 
+@contextlib.contextmanager
+def deterministic_ops():
+    """PyTorch's deterministic implementations inside the block: its
+    scatter-adds (index_add_, the backward of gathers) sum in a fixed order
+    instead of atomics.  It raises where an op has none.  cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG before the process's first cuBLAS call, which
+    main sets."""
+    import torch
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in (CUBLAS_WORKSPACE, ":16:8"):
+        raise RuntimeError(f"deterministic_ops needs CUBLAS_WORKSPACE_CONFIG={CUBLAS_WORKSPACE} "
+                           "(or :16:8) set before torch starts")
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
 def _check_same_graph(name, og, oc, fields=("entry_voxel_id", "sem_preds", "proposal_sem",
                                             "npcs_valid", "ious")):
     """The integer outputs of two train passes that decide what the loss
@@ -1018,7 +1066,8 @@ def _check_same_graph(name, og, oc, fields=("entry_voxel_id", "sem_preds", "prop
         _check_equal(f"{name}: counter {k}", og.counters[k], v)
 
 
-def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUNS, tag="train compare"):
+def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUNS, tag="train compare",
+                        deterministic=None):
     """One train forward + backward on n clouds: `runs` times on the card,
     once on the CPU with the same weights, jitter and inputs, and once on
     the CPU per probe of PROBES.  Returns the worst gradient deviation
@@ -1034,7 +1083,16 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     at near-ties of the CPU's logits, as they may in the probes.  A
     PointNet step (phase 12b) is as rounding-sensitive without bf16: its
     transformers' fc BatchNorms take E[x^2] - mean^2 over the B rows,
-    which cancels most digits; it gets the same terms but the bf16 ulp."""
+    which cancels most digits; it gets the same terms but the bf16 ulp.
+
+    Such a step's card runs take PyTorch's deterministic implementations
+    (deterministic_ops; `deterministic` overrides), and more than one such
+    run must be bitwise equal.  With atomic scatter-adds each card run is
+    another draw of the card's rounding, and now and then one crosses a
+    kink that none of the four probes crosses (--compare-draws counts
+    them): one bf16 draw moved npcs_unet.ublock.dec0.shortcut_kernel's
+    gradient by 18% of its scale, 1.15 times its allowance, where the
+    probes move it by 2-4% (on an H100 80GB HBM3 at 700 W)."""
     import torch
 
     from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
@@ -1051,8 +1109,24 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
         print(f"[{tag}] {what} at B={n}: {time.perf_counter() - t0:.2f} s")
         return res
 
+    bf16 = cfg.conv_compute_dtype == "bfloat16"
+    # rounding-sensitive steps: a bf16 network, or PointNet, whose
+    # transformers' fc BatchNorms take E[x^2] - mean^2 over the B rows
+    sensitive = bf16 or cfg.backbone_type == "PointNet"
+    det = sensitive if deterministic is None else deterministic
     mc, oc, bc = run("cpu", "cpu step")
-    cards = [run("cuda", f"card step {r + 1}") for r in range(runs)]
+    with deterministic_ops() if det else contextlib.nullcontext():
+        cards = [run("cuda", f"card step {r + 1}" + (" (deterministic scatter-adds)" if det else ""))
+                 for r in range(runs)]
+    if det and runs > 1:
+        first = {**cards[0][0].state_dict(),
+                 **{"grad " + k: p.grad for k, p in cards[0][0].named_parameters()}}
+        for r, (mg, _, _) in enumerate(cards[1:], 2):
+            now = {**mg.state_dict(), **{"grad " + k: p.grad for k, p in mg.named_parameters()}}
+            for k, v in first.items():
+                _check_equal(f"deterministic card step {r}: {k}", now[k], v)
+        print(f"[{tag}] {runs} deterministic card steps: every gradient and running "
+              "statistic bitwise equal")
     probes = [run("cpu", f"cpu step, parameters moved by {sign * PERTURB:+g} (noise seed {seed})",
                   (seed, sign)) for seed, sign in PROBES]
 
@@ -1071,10 +1145,6 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     for li, (dg, dc) in enumerate(zip(hg.downsamples, hc.downsamples)):
         for f in dg._fields:
             _check_equal(f"backbone downsample {li} {f}", getattr(dg, f), getattr(dc, f))
-    bf16 = cfg.conv_compute_dtype == "bfloat16"
-    # rounding-sensitive steps: a bf16 network, or PointNet, whose
-    # transformers' fc BatchNorms take E[x^2] - mean^2 over the B rows
-    sensitive = bf16 or cfg.backbone_type == "PointNet"
     reduced = ("entry_voxel_id", "proposal_sem", "ious")
     lc = oc.sem_logits.detach().cpu()
     sem_tol = LOSS_RTOL * float(lc.abs().max()) + max(
@@ -1158,6 +1228,33 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     print(f"[{tag}] running statistics: worst max|d| / max|cpu| {worst_stats[0]:.3e} "
           f"({worst_stats[1]}), tolerance {STATS_RTOL}")
     return worst, worst_stats[0]
+
+
+def phase_compare_draws(draws, smi):
+    """Phase 11c's bf16 card-vs-CPU train step as a distribution: `draws`
+    card steps with PyTorch's atomic scatter-adds, each held to the CPU
+    step's allowances, then `draws` deterministic ones, which must pass
+    and be bitwise equal.  Prints how many atomic draws went over."""
+    import torch
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.entry import train_setup
+
+    tcfg, tbatch, tsem, toff = train_setup(GAPartNetConfig(conv_compute_dtype="bfloat16"),
+                                           batch_size=TRAIN_BATCH, device="cuda")
+    over = set()
+    try:
+        phase_train_compare(tcfg, tbatch, tsem, toff, runs=draws, tag="bf16 draws, atomic",
+                            deterministic=False)
+    except AssertionError as e:
+        over = set(re.findall(r"card step (\d+), grad", str(e)))
+        if not over:
+            raise
+    print(f"[bf16 draws, atomic] {len(over)} of {draws} card steps over their allowance "
+          f"({smi})")
+    torch.cuda.empty_cache()
+    phase_train_compare(tcfg, tbatch, tsem, toff, runs=draws, tag="bf16 draws, deterministic",
+                        deterministic=True)
 
 
 def inference_pair(cfg):
@@ -2884,8 +2981,271 @@ def phase_pointnet(tcfg, tbatch, tsem, toff, smi):
                              for k in ("fwd", "dgrad", "wgrad")})
 
 
+# phase 13, dataset generation -> predict_depth -> train steps (the tenth
+# slice): the JAX defaults (800 x 800 views, 1,000,000 surface samples,
+# 20000 points, GAPartNetConfig()), the three synthetic archetypes
+DATAGEN_ASSETS = {"Box": 1, "Remote": 1, "Microwave": 1}
+DATAGEN_SEED = 0
+DATAGEN_VIEWS = 2                  # views ingested per asset, until DATAGEN_CLOUDS
+DATAGEN_CLOUDS = 4
+DATAGEN_BATCH = 4
+DATAGEN_WARMUPS = 1
+DATAGEN_STEPS = 3
+DATAGEN_SPLIT_REQUESTS = 2
+# the trace of one train step must name the fp32 subm-conv kernels
+DATAGEN_TRACE_KERNELS = ("subm_conv_fwd_kernel", "subm_conv_wgrad_kernel")
+
+
+def _same_npz(got_path, want_path):
+    """Every array of two .npz files equal exactly (names, dtypes, values)."""
+    import numpy as np
+
+    got, want = np.load(got_path), np.load(want_path)
+    if sorted(got.files) != sorted(want.files):
+        raise AssertionError(f"{got_path}: arrays {sorted(got.files)} != {sorted(want.files)}")
+    for k in want.files:
+        if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+            diff = int((got[k] != want[k]).sum()) if got[k].shape == want[k].shape else "shape"
+            raise AssertionError(f"{os.path.basename(str(got_path))}: {k} differs ({diff})")
+    return sorted(want.files)
+
+
+def datagen_batch(cfg, items, device="cuda"):
+    """(cfg with capacities fitted to the clouds, batch, cluster_sem,
+    cluster_off) from dataset items: train_setup's capacity rules (the
+    maximum over the clouds) and its clustering overrides (ground-truth
+    labels, offsets to the instance centres)."""
+    import numpy as np
+    import torch
+
+    from gapartnet_tpu_torch.data.loader import collate
+    from gapartnet_tpu_torch.entry import _fitted_capacities, _overrides, max_fitted
+    from gapartnet_tpu_torch.structures import PointCloudBatch
+
+    fitted, offsets = [], []
+    for it in items:
+        m = it["point_mask"]
+        xyz, sem, ins = it["points"][m, :3], it["sem_labels"][m], it["instance_labels"][m]
+        fields, centers = _fitted_capacities(cfg, xyz, sem, ins)
+        fitted.append(fields)
+        off = np.zeros((len(m), 3), np.float32)
+        off[m] = _overrides(xyz, centers, ins)
+        offsets.append(off)
+    cfg = dataclasses.replace(cfg, **max_fitted(fitted))
+    arrays = collate(items)
+    batch = PointCloudBatch.from_numpy(arrays, device)
+    cluster_sem = torch.as_tensor(np.where(arrays["point_mask"], arrays["sem_labels"], 0),
+                                  device=device)
+    return cfg, batch, cluster_sem, torch.as_tensor(np.stack(offsets), device=device)
+
+
+def phase_datagen(smi, tmp):
+    """Phase 13: generated assets -> SAPIEN-free renders -> predict_depth
+    through the demo's --asset path -> ingested .npz clouds -> the native
+    dataset -> train steps, timed by utils/profiling.StepTimer and traced
+    by its maybe_trace, in the directory `tmp`.  Returns the numbers for
+    the kernel line."""
+    import numpy as np
+    import torch
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.data.loader import GAPartNetDataset
+    from gapartnet_tpu_torch.datagen.assets import ingest_asset, render_asset_view, render_view_maps
+    from gapartnet_tpu_torch.datagen.convert import backproject_labeled, fps_indices
+    from gapartnet_tpu_torch.datagen.synthetic import generate_assets
+    from gapartnet_tpu_torch.demo import asset_request
+    from gapartnet_tpu_torch.infer.api import GAPartNetInference
+    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.train.loop import adam, train_step
+    from gapartnet_tpu_torch.utils.profiling import StepTimer, device_memory_stats, maybe_trace
+
+    cfg = GAPartNetConfig()
+    num_points = cfg.max_points
+    timer = StepTimer()
+    t = time.perf_counter()
+
+    # 13a: assets, one view of each, FPS on the card; one ingest card vs CPU
+    dirs = generate_assets(str(Path(tmp) / "assets"), DATAGEN_ASSETS, seed=DATAGEN_SEED)
+    fg, rejected = {}, 0
+    for d in dirs:
+        with timer.time(f"render {Path(d).name}"):
+            maps = render_view_maps(d, seed=DATAGEN_SEED)
+        pcs = backproject_labeled(maps["rgb"], maps["depth"], maps["sem"], maps["ins"],
+                                  maps["npcs"], maps["K"])[0]
+        fg[d] = len(pcs)
+        if fg[d] < num_points:
+            rejected += 1
+            fps_ms = None
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx = fps_indices(pcs, num_points, device="cuda")
+            fps_ms = (time.perf_counter() - t0) * 1e3
+            if not (len(idx) == num_points == len(np.unique(idx))):
+                raise AssertionError(f"{d}: FPS gave {len(np.unique(idx))} distinct of {len(idx)}")
+        print(f"[datagen] {Path(d).name}: {maps['depth'].shape[1]}x{maps['depth'].shape[0]} view, "
+              f"host render {timer.times[f'render {Path(d).name}'] * 1e3:.1f} ms, {fg[d]} foreground "
+              f"pixels, {int((maps['ins'] >= 0).sum())} on {len(maps['link_to_inst'])} parts; FPS "
+              f"{fg[d]} -> {num_points} on the card {_fmt(fps_ms)} ms  ({smi})")
+    usable = [d for d in dirs if fg[d] >= num_points]
+    if not usable:
+        raise AssertionError(f"no view has {num_points} foreground pixels: {fg}")
+    small = min(usable, key=fg.get)
+    names = {}
+    for dev in ("cuda", "cpu"):
+        with timer.time(f"ingest one view, FPS on {dev}"):
+            names[dev] = render_asset_view(small, str(Path(tmp) / f"view_{dev}"), seed=DATAGEN_SEED,
+                                           num_points=num_points, device=dev)
+    if names["cuda"] is None or names["cuda"] != names["cpu"]:
+        raise AssertionError(f"render_asset_view of {small}: {names}")
+    arrays = _same_npz(Path(tmp) / "view_cuda" / "pth" / f"{names['cuda']}.npz",
+                       Path(tmp) / "view_cpu" / "pth" / f"{names['cpu']}.npz")
+    print(f"[datagen] render_asset_view of {Path(small).name} ({fg[small]} foreground pixels): "
+          f"FPS on the card and on the CPU give the same .npz, every array equal ({', '.join(arrays)}); "
+          f"{timer.summary()['ingest one view, FPS on cuda']:.1f} ms with FPS on the card, "
+          f"{timer.summary()['ingest one view, FPS on cpu']:.1f} ms on the CPU")
+    t = lap("phase 13a (assets, renders, FPS, card vs CPU ingest)", t)
+
+    # 13b: predict_depth on a rendered view through the demo's --asset path
+    infer = GAPartNetInference(cfg, seed=0, auto_capacity=True, device="cuda")
+    asset_request(infer, usable[0], DATAGEN_SEED)                   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    view = asset_request(infer, usable[0], DATAGEN_SEED)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    depth_launches = dict(LAUNCHES)
+    if depth_launches != launch_counts(fwd=CONVS_PER_FORWARD):
+        raise AssertionError(f"the asset's predict_depth launched {depth_launches}, expected "
+                             f"{CONVS_PER_FORWARD} forward launches")
+    res = view["result"]
+    if not (np.isfinite(res.npcs_map).all() and np.isfinite(res.proposal_scores).all()):
+        raise AssertionError("the asset's predict_depth: non-finite outputs")
+    maps = view["maps"]
+    bgr = np.ascontiguousarray(maps["rgb"][..., ::-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer.predict_depth(maps["depth"], maps["K"], bgr)
+    torch.cuda.synchronize()
+    depth_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[datagen depth] {Path(usable[0]).name}: render + predict_depth {request_ms:.1f} ms, "
+          f"predict_depth alone {depth_ms:.1f} ms ({fg[usable[0]]} pixels, FPS to {num_points}); "
+          f"{depth_launches['fwd']} subm_conv forward launches; sem agreement vs render labels "
+          f"{view['agreement']:.3f} (random weights); {len(res.bboxes)} boxes  ({smi})")
+    err = phase_api_kernels("datagen depth", infer, view["points"])
+    _, split, device = report_split("datagen depth", infer, view["points"],
+                                    requests=DATAGEN_SPLIT_REQUESTS)
+    t = lap("phase 13b (predict_depth on a rendered view)", t)
+
+    # 13c: ingested clouds -> the native dataset -> train steps
+    root = Path(tmp) / "dataset" / "pth"
+    ingested = []
+    for d in dirs:
+        if len(ingested) >= DATAGEN_CLOUDS:
+            break
+        with timer.time(f"ingest {Path(d).name}"):
+            got = ingest_asset(d, str(root.parent), num_views=DATAGEN_VIEWS, seed=DATAGEN_SEED + 1,
+                               num_points=num_points, device="cuda")
+        rejected += DATAGEN_VIEWS - len(got)
+        ingested += got
+        print(f"[datagen ingest] {Path(d).name}: {len(got)} of {DATAGEN_VIEWS} views ingested in "
+              f"{timer.summary()[f'ingest {Path(d).name}']:.1f} ms (render, FPS on the card, save)")
+    if len(ingested) < DATAGEN_CLOUDS:
+        raise AssertionError(f"only {len(ingested)} clouds ingested: {ingested}")
+    print(f"[datagen ingest] {len(ingested)} clouds; views rejected for fewer than {num_points} "
+          f"foreground pixels: {rejected}")
+    with timer.time("load"):
+        ds = GAPartNetDataset(str(root), max_points=num_points, max_instances=cfg.max_instances)
+        items = [ds[i] for i in range(DATAGEN_BATCH)]
+    plain = GAPartNetDataset(str(root), max_points=num_points, max_instances=cfg.max_instances,
+                             native=False)
+    for i, it in enumerate(items):
+        if not 0 < it["num_instances"] < cfg.max_instances:
+            raise AssertionError(f"{it['pc_id']}: {it['num_instances']} instances")
+        want = plain[i]
+        for k, v in want.items():
+            if k != "pc_id" and not (np.asarray(it[k]).dtype == np.asarray(v).dtype
+                                     and np.array_equal(it[k], v)):
+                raise AssertionError(f"{it['pc_id']}: native {k} != the plain NumPy version's")
+    print(f"[datagen data] {DATAGEN_BATCH} items through the native instance statistics in "
+          f"{timer.summary()['load']:.1f} ms, equal to the plain NumPy version's; instances "
+          f"{[int(it['num_instances']) for it in items]}")
+    tcfg, batch, csem, coff = datagen_batch(cfg, items)
+    tkeys, _, tnvox, _ = prepare_input_grid(batch.points, batch.point_mask, tcfg)
+    thier = build_hierarchy(tkeys, tnvox, tcfg.input_capacities(), extent=tcfg.input_grid_extent)
+    print(f"[datagen train] B={DATAGEN_BATCH} capacities {tcfg.input_capacities()}, voxels per level "
+          f"(max over B) {[int(lv.num_voxels.max()) for lv in thier.levels]}")
+    rows = phase_train_kernels(train_conv_shapes(tcfg, thier, proposal_geometry(tcfg, batch, csem, coff)),
+                               tag="datagen train kernel", timed=False)
+    model = _train_model(tcfg)
+    opt = adam(model.named_parameters(), 1e-3)
+    gen = torch.Generator().manual_seed(0)
+
+    def step():
+        return train_step(model, opt, batch, gen, True, True, True,
+                          cluster_sem_override=csem, cluster_offset_override=coff)
+
+    history = [step() for _ in range(DATAGEN_WARMUPS)]
+    torch.cuda.synchronize()
+    reset_launches()
+    for i in range(DATAGEN_STEPS):
+        with timer.time(f"step {i + 1}"):
+            history.append(step())
+            torch.cuda.synchronize()
+    train_launches = dict(LAUNCHES)
+    want = {k: n * DATAGEN_STEPS for k, n in LAUNCHES_PER_STEP.items()}
+    if train_launches != want:
+        raise AssertionError(f"datagen train steps launched {train_launches}, expected {want}")
+    trace_dir = Path(tmp) / "trace"
+    reset_launches()
+    with maybe_trace(str(trace_dir)):
+        history.append(step())
+        torch.cuda.synchronize()
+    trace_launches = dict(LAUNCHES)
+    if trace_launches != LAUNCHES_PER_STEP:
+        raise AssertionError(f"the traced step launched {trace_launches}")
+    traces = sorted(trace_dir.glob("trace-*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"maybe_trace wrote {traces}")
+    names_in_trace = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    missing = [k for k in DATAGEN_TRACE_KERNELS if not any(k in n for n in names_in_trace)]
+    if missing:
+        raise AssertionError(f"the trace {traces[0].name} names no {missing}")
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"datagen step {i + 1}: non-finite {bad}")
+        nonzero = {k: float(v) for k, v in m.items() if k.startswith("counters/") and float(v) != 0}
+        if nonzero:
+            raise AssertionError(f"datagen step {i + 1}: capacity counters nonzero: {nonzero}")
+    summary = timer.summary()
+    step_ms = [summary[f"step {i + 1}"] for i in range(DATAGEN_STEPS)]
+    print(f"[datagen train] B={DATAGEN_BATCH} ms per step (StepTimer around a synchronize): "
+          f"{step_ms}, median {statistics.median(step_ms):.2f}; launches in {DATAGEN_STEPS} steps "
+          f"{train_launches}; all counters 0; losses finite  ({smi})")
+    print(f"[datagen train] step 1: " + ", ".join(
+        f"{k} {float(v):.4f}" for k, v in history[0].items() if not k.startswith("counters/")))
+    print(f"[datagen trace] {traces[0].name}: {traces[0].stat().st_size} bytes, "
+          f"{len(names_in_trace)} event names, names {', '.join(DATAGEN_TRACE_KERNELS)}")
+    print(f"[datagen memory] {device_memory_stats()}")
+    print(f"[datagen timer] {summary}")
+    lap("phase 13c (ingest, native dataset, train steps)", t)
+    return dict(
+        depth_launches=depth_launches["fwd"], depth_ms=depth_ms, depth_split=split,
+        depth_device=device, train_launches=train_launches, trace_launches=trace_launches,
+        step_ms=step_ms, max_abs_err={
+            "fwd": max(err, *(r["fwd"]["max_abs_err"] for r in rows)),
+            "dgrad": max(r["dgrad"]["max_abs_err"] for r in rows),
+            "wgrad": max(r["wgrad"]["max_abs_err"] for r in rows)},
+        render_ms={Path(d).name: summary[f"render {Path(d).name}"] for d in dirs},
+        foreground=[fg[d] for d in dirs], clouds=len(ingested), rejected=rejected)
+
+
 def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None, fit=None,
-                dp=None, exact=None, pointnet=None):
+                dp=None, exact=None, pointnet=None, datagen=None):
     """The {"kernels": [...]} entries: per kernel, its launches in the main
     path's run (None when it did not run), its times summed over one B = 8
     train step (forward: with the 53 inference convs beside them, and the
@@ -2894,7 +3254,9 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
     phase 9's fit and frozen-trunk runs; with `dp`, each rank's launches in
     phase 10's timed data-parallel steps and its fit; with `exact` and
     `pointnet` (phase 12), the launches of the exact-clustering forwards and
-    requests and of the PointNet train steps, added to `launches`."""
+    requests and of the PointNet train steps, added to `launches`; with
+    `datagen` (phase 13), the launches of the rendered view's predict_depth
+    and of the train steps on the ingested clouds, added to `launches`."""
     flops = sum(r["flops"] * r["per_forward"] for r in rows)
     nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
     inference_bound, inference_by = _bound(flops, nbytes)
@@ -3005,6 +3367,23 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
             entry_["launches"] += (p12["pointnet_launches"] + p12.get("exact_launches", 0)
                                    + p12.get("exact_predict_launches", 0))
             entry_["max_abs_err"] = max(entry_["max_abs_err"], p12["max_abs_err"])
+        if datagen is not None:
+            p13 = {
+                "launches": datagen["train_launches"][kind] + datagen["trace_launches"][kind],
+                "per_step": LAUNCHES_PER_STEP[kind],
+                "steps": DATAGEN_STEPS + 1, "step_ms": datagen["step_ms"],
+                "max_abs_err": datagen["max_abs_err"][kind],
+                "work": f"{DATAGEN_STEPS} timed and 1 traced train steps at B = {DATAGEN_BATCH} on "
+                        "ingested synthetic-asset views; one predict_depth on a rendered 800x800 "
+                        "view (the 53 backbone convs)",
+            }
+            if kind == "fwd":
+                p13.update(depth_launches=datagen["depth_launches"],
+                           predict_depth_ms=datagen["depth_ms"])
+                p13["launches"] += datagen["depth_launches"]
+            entry_["phase13"] = p13
+            entry_["launches"] += p13["launches"]
+            entry_["max_abs_err"] = max(entry_["max_abs_err"], p13["max_abs_err"])
         kernels.append(entry_)
     return kernels
 
@@ -3018,7 +3397,11 @@ def lap(what, since):
 
 def main():
     import argparse
+    import tempfile
 
+    # cuBLAS reads it when it first makes a handle; deterministic_ops
+    # (phases 11c and 12b) needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3030,6 +3413,10 @@ def main():
                              "only, print per-step and per-forward device and call ms, then "
                              "the kernel line (launches null) and the nvidia-smi line; for "
                              "comparing kernel versions in one call")
+    parser.add_argument("--compare-draws", type=int, default=0, metavar="N",
+                        help="build, then hold N bf16 card train steps with atomic and N "
+                             "with deterministic scatter-adds against the CPU step (phase "
+                             "11c's check as a distribution) and stop")
     parser.add_argument("--port-root", type=Path, default=ROOT,
                         help="the checkout whose gapartnet_tpu_torch is measured (default: "
                              "this script's); with another, the SASS design check only prints")
@@ -3075,6 +3462,11 @@ def main():
                 raise AssertionError(f"{kname} has no wgmma (HGMMA): {ops}")
     use_fp32_math()
     t = lap("phase 1 (build)", t)
+    if args.compare_draws:
+        phase_compare_draws(args.compare_draws, smi)
+        lap("compare draws", t)
+        print(smi)
+        return
 
     # phase 2: kernel vs plain on every backbone shape of the real hierarchy
     cfg, batch, cluster_sem, cluster_off = bench_cloud_setup(GAPartNetConfig(), device="cuda")
@@ -3162,12 +3554,20 @@ def main():
     torch.cuda.empty_cache()
     exact = phase_exact(cfg, batch, cluster_sem, cluster_off, smi)
     pointnet = phase_pointnet(tcfg, tbatch, tsem, toff, smi)
-    lap("phase 12 (exact clustering, PointNet)", t)
+    t = lap("phase 12 (exact clustering, PointNet)", t)
+
+    # phase 13: dataset generation -> predict_depth -> train steps (the
+    # tenth slice), in a temporary directory
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_datagen_") as tmp:
+        datagen = phase_datagen(smi, tmp)
+    lap("phase 13 (datagen, predict_depth, train steps)", t)
     lap("total", start)
 
     # phase 8: the kernel line, then the device line
     print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
-                                             train_launches, api, fit, dp, exact, pointnet)
+                                             train_launches, api, fit, dp, exact, pointnet,
+                                             datagen)
                       + bf16_kernel_entries(bf16)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

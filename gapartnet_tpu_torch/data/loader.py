@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from gapartnet_tpu_torch.constants import OBJECT_NAME2ID
-from gapartnet_tpu_torch.data.instances import generate_instance_info
+from gapartnet_tpu_torch.data import native_loader
 
 
 def load_cloud_file(path: str) -> dict:
@@ -88,19 +88,6 @@ def apply_augmentations(
     return points
 
 
-def instance_info(points, sem_labels, instance_labels, max_instances: int):
-    """(instance_regions (N, 9), num_points_per_instance (I,),
-    instance_sem_labels (I,), K): the instance statistics padded to
-    I = `max_instances` (K clamped to it)."""
-    regions, nppi, isl, num = generate_instance_info(points, sem_labels, instance_labels)
-    k = min(num, max_instances)
-    nppi_p = np.zeros(max_instances, np.int32)
-    isl_p = np.full(max_instances, -1, np.int32)
-    nppi_p[:k] = nppi[:k]
-    isl_p[:k] = isl[:k]
-    return regions, nppi_p, isl_p, k
-
-
 def _cloud_files(root) -> List[str]:
     return sorted(glob(str(root) + "/*.pth")) + sorted(glob(str(root) + "/*.npz"))
 
@@ -111,7 +98,10 @@ class GAPartNetDataset:
 
     Augmentation draws come from a RandomState seeded by (seed, epoch,
     index), so they do not depend on which thread loads a sample; the
-    trainer sets `epoch` per epoch."""
+    trainer sets `epoch` per epoch.  Instance statistics come from the
+    native library (data/native_loader.py), as the JAX loader takes them
+    (loader.py:215-220); `native=False` takes them from the plain NumPy
+    version, which differs only past `max_instances`."""
 
     def __init__(
         self,
@@ -128,6 +118,7 @@ class GAPartNetDataset:
         rotate_prob: float = 0.0,
         nopart_path: Optional[str] = None,
         seed: int = 0,
+        native: bool = True,
     ):
         roots = root_dir if isinstance(root_dir, (list, tuple)) else [root_dir]
         paths = [p for rt in roots for p in _cloud_files(rt)]
@@ -151,6 +142,7 @@ class GAPartNetDataset:
         self.color_jitter = color_jitter
         self.flip_prob = flip_prob
         self.rotate_prob = rotate_prob
+        self.native = native
 
     def __len__(self):
         return len(self.paths)
@@ -168,8 +160,8 @@ class GAPartNetDataset:
                 d["points"], rng, self.pos_jitter, self.color_jitter,
                 self.flip_prob, self.rotate_prob,
             )
-        regions, nppi, isl, k = instance_info(
-            d["points"], d["sem_labels"], d["instance_labels"], self.max_instances
+        regions, nppi, isl, k = native_loader.instance_info(
+            d["points"], d["sem_labels"], d["instance_labels"], self.max_instances, self.native
         )
         pad = self.max_points - n
 

@@ -159,6 +159,16 @@ def bench_cloud_setup(cfg: GAPartNetConfig, path=BENCH_CLOUD, device="cuda", bat
     return cfg, batch, cluster_sem, cluster_off
 
 
+def max_fitted(fitted) -> dict:
+    """The largest of several clouds' `_fitted_capacities` fields, per
+    field (per level for the tuples): capacities that fit all of them."""
+    return {
+        k: (tuple(max(f[k][i] for f in fitted) for i in range(len(fitted[0][k])))
+            if isinstance(fitted[0][k], tuple) else max(f[k] for f in fitted))
+        for k in fitted[0]
+    }
+
+
 def rotation_z(theta: float) -> np.ndarray:
     """The augmentation's rotation about z (data/loader.py:85-93), applied
     to row vectors as xyz @ R."""
@@ -183,12 +193,7 @@ def train_setup(cfg: GAPartNetConfig, batch_size: int = 8, seed: int = 0, device
         fields, centers = _fitted_capacities(cfg, xyz, sem, ins)
         fitted.append(fields)
         clouds.append((xyz, _overrides(xyz, centers, ins)))
-    fields = {
-        k: (tuple(max(f[k][i] for f in fitted) for i in range(len(fitted[0][k])))
-            if isinstance(fitted[0][k], tuple) else max(f[k] for f in fitted))
-        for k in fitted[0]
-    }
-    cfg = dataclasses.replace(cfg, **fields)
+    cfg = dataclasses.replace(cfg, **max_fitted(fitted))
     points = np.stack([np.concatenate([xyz, d["rgb"]], axis=1) for xyz, _ in clouds]).astype(np.float32)
     nppi = np.zeros((batch_size, cfg.max_instances), np.int32)
     isl = np.full((batch_size, cfg.max_instances), -1, np.int32)

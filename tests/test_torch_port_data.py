@@ -2,9 +2,9 @@
 (augmented and not), collate, the trainer's batch order (shuffled, with
 worker threads), trailing-batch padding, and the capacity scans.
 
-Items must be equal exactly, except `instance_regions` (within 1e-6: the
-JAX package computes them in float32 C++ when its native library is
-built, the port in NumPy)."""
+Items must be equal exactly.  Both datasets take their instance statistics
+from their native libraries (the same C++ source); the port's plain NumPy
+version (`native=False`) is held to the JAX package's NumPy branch."""
 
 import numpy as np
 import pytest
@@ -17,7 +17,6 @@ from gapartnet_tpu_torch.data import capacity as tcap
 from gapartnet_tpu_torch.data import loader as tloader
 from gapartnet_tpu_torch.train import trainer as ttrainer
 
-REGIONS_TOL = 1e-6
 AUG = dict(pos_jitter=0.1, color_jitter=0.3, flip_prob=0.3, rotate_prob=0.3)
 
 
@@ -38,9 +37,10 @@ def data_dir(tmp_path_factory):
     return d
 
 
-def _pair(data_dir, **kw):
+def _pair(data_dir, native=True, **kw):
     kw = {"max_points": 300, "max_instances": 4, **kw}
-    return jloader.GAPartNetDataset(data_dir, **kw), tloader.GAPartNetDataset(data_dir, **kw)
+    return (jloader.GAPartNetDataset(data_dir, **kw),
+            tloader.GAPartNetDataset(data_dir, native=native, **kw))
 
 
 def _assert_item_equal(got, want):
@@ -48,13 +48,12 @@ def _assert_item_equal(got, want):
     for k, v in want.items():
         if k == "pc_id":
             assert got[k] == v
-        elif k == "instance_regions":
-            np.testing.assert_allclose(got[k], v, rtol=0, atol=REGIONS_TOL)
         else:
             assert got[k].dtype == np.asarray(v).dtype, k
             np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
+@pytest.mark.parametrize("branch", ["native", "plain"])
 @pytest.mark.parametrize("kw", [
     {},
     dict(augmentation=True, seed=5, **AUG),
@@ -62,19 +61,29 @@ def _assert_item_equal(got, want):
     dict(few_shot=True, few_shot_num=3),
     dict(max_instances=2),
 ])
-def test_dataset_items_equal(data_dir, kw, monkeypatch):
-    """Against the NumPy branch of the JAX package's instance statistics
-    (native_loader.py:108-119), which the port copies: the native library,
-    when built, leaves the regions of instances past max_instances at 0."""
+def test_dataset_items_equal(data_dir, kw, branch, monkeypatch):
+    """"native": the port's dataset against the JAX dataset with its native
+    library built (both leave the regions of instances past max_instances
+    at 0, gapdata.cpp:65-113).  "plain": the port's NumPy version against
+    the JAX package's NumPy branch (native_loader.py:108-119), which
+    computes them.  max_instances=2 is the case past the cap."""
     from gapartnet_tpu.data import native_loader
 
-    monkeypatch.setattr(native_loader, "get_lib", lambda: None)
-    jd, td = _pair(data_dir, **kw)
+    if branch == "plain":
+        monkeypatch.setattr(native_loader, "get_lib", lambda: None)
+    else:
+        assert native_loader.get_lib() is not None, "the JAX native library did not build"
+    jd, td = _pair(data_dir, native=branch == "native", **kw)
     assert td.paths == jd.paths
     for epoch in (0, 3):
         jd.epoch = td.epoch = epoch
         for i in range(len(jd)):
             _assert_item_equal(td[i], jd[i])
+    if kw.get("max_instances") == 2:
+        other = tloader.GAPartNetDataset(data_dir, max_points=300, max_instances=2,
+                                         native=branch != "native")
+        assert any(not np.array_equal(td[i]["instance_regions"], other[i]["instance_regions"])
+                   for i in range(len(td)))
 
 
 def test_nopart_filter_and_from_folder(data_dir, tmp_path):
@@ -107,10 +116,7 @@ def _assert_batch_equal(got, want):
     for k in want:
         if k == "pc_ids":
             continue
-        if k == "instance_regions":
-            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=REGIONS_TOL)
-        else:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("batch_size,drop_last,shuffle_seed,workers", [

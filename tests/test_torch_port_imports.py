@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax, flax nor the JAX
 package, and neither does chip_smoke.py; every module also imports without
-PyYAML and cv2, which the card's machine lacks."""
+PyYAML and cv2, which the card's machine lacks, and without sapien."""
 
 import ast
 import subprocess
@@ -17,6 +17,7 @@ sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["yaml"] = None
 sys.modules["cv2"] = None
+sys.modules["sapien"] = None
 import importlib, pkgutil
 import gapartnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gapartnet_tpu_torch.__path__, "gapartnet_tpu_torch.")]
@@ -36,7 +37,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stderr
     # every module of the slices so far was imported
-    assert int(r.stdout.strip().splitlines()[-1]) >= 40
+    assert int(r.stdout.strip().splitlines()[-1]) >= 49
 
 
 def test_training_slice_modules_exist():
@@ -61,6 +62,26 @@ def test_configurations_slice_modules_exist():
     for name in ("ops/ball_query.py", "ops/ccl.py", "models/pointnet.py", "ops/pointnet2.py",
                  "models/pointnet2_modules.py", "utils/visu.py"):
         assert (PORT / name).exists(), name
+
+
+def test_data_tools_slice_modules_exist():
+    for name in ("datagen/__init__.py", "datagen/config.py", "datagen/render_config.json",
+                 "datagen/pose.py", "datagen/convert.py", "datagen/render.py", "datagen/assets.py",
+                 "datagen/synthetic.py", "data/native_loader.py", "data/native/gapdata.cpp",
+                 "utils/profiling.py"):
+        assert (PORT / name).exists(), name
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has one of the same name in the port,
+    except parallel/mesh.py, whose counterpart is parallel/dist.py, and the
+    Pallas kernel ops/pallas_conv.py, whose counterpart is ops/subm_conv.py
+    with its CUDA sources."""
+    jax_pkg = ROOT / "gapartnet_tpu"
+    renamed = {"parallel/mesh.py": "parallel/dist.py", "ops/pallas_conv.py": "ops/subm_conv.py"}
+    for f in sorted(jax_pkg.rglob("*.py")) + sorted(jax_pkg.rglob("*.json")):
+        rel = f.relative_to(jax_pkg).as_posix()
+        assert (PORT / renamed.get(rel, rel)).exists(), rel
 
 
 def test_data_parallel_slice_modules_exist():
