@@ -64,7 +64,7 @@ source, in parallel), then:
      1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
   8. prints the wall time of each phase, one {"kernels": [...]} JSON line
      (the fp32 kernels, then the bf16 ones), the nvidia-smi line and, last,
-     the device line {"ok": true, "device": {...}}, after phase 13;
+     the device line {"ok": true, "device": {...}}, after phase 14;
   9. the trainer (the fifth slice's main path), in a temporary directory:
      a dataset of assets/bench_cloud.npz rotated about z (48 train clouds,
      3 per eval split, so each eval split ends in a padded batch);
@@ -189,7 +189,31 @@ source, in parallel), then:
      77 / 76 / 77 launches per step, zero counters, finite losses; one
      more step traced by utils/profiling.maybe_trace, whose Chrome trace
      must name the subm-conv kernels; device_memory_stats().  The kernel
-     line adds phase 13's launches to the fp32 kernels' counts.
+     line adds phase 13's launches to the fp32 kernels' counts;
+ 14. the checkpoint tools (the eleventh slice's main path), at
+     GAPartNetConfig() widths, with phase 9's checkpoint `last`: 14a,
+     `last` written as the reference's Lightning .ckpt (spconv layout, the
+     inverse of train/ckpt_convert, `reference_state_dict`) and read back
+     through tools/eval_parity's own loading: every tensor bitwise equal;
+     14b, `python -m gapartnet_tpu_torch.tools.eval_parity` through its
+     main(argv) on 2 rotated bench clouds per split (exact clustering,
+     --batch 2, the tool's default capacities): every eval metric name
+     logged and finite, 53 forward launches per eval batch, the counters
+     printed; the kernel against its plain version on the hierarchy of the
+     tool's val batch; one reduced eval step (the val split's last cloud)
+     card vs CPU (phase 9's rules); then with --bf16 (53 fwd_bf16 launches
+     per batch, the bf16 forward against its plain version); 14c,
+     tools/visu's run with --ckpt `last` on the bench cloud's .npz and on
+     an OBJ of it with 4000 more jittered vertices (FPS 24000 -> 20000 on
+     the card, indices equal to the CPU's): 53 launches per predict, each
+     predict against the CPU's (phase 7's rules; at these default
+     capacities the hash node table overflows, so where sem_preds agree
+     but the clustering's integers differ, an offset within tolerance of a
+     hash-cell face must explain it and the CPU's clustering of the card's
+     offsets must give the card's integers; --visu-draws N: this check
+     over N rotated clouds, then stop); the panels where cv2 is
+     importable, else write_panels must raise naming cv2.  The kernel line
+     adds phase 14's launches to the fp32 and bf16 forwards' counts.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -1257,6 +1281,38 @@ def phase_compare_draws(draws, smi):
                         deterministic=True)
 
 
+def phase_visu_draws(draws, smi):
+    """Phase 14c's card-vs-CPU visu request as a distribution: phase 9's fit
+    for a trained `last`, then the bench cloud turned about z by 2 pi i /
+    `draws`, i < `draws`, through GAPartNetInference(ckpt_path=last) at the
+    default capacities (as visu builds it) on the card and on the CPU, each
+    held to compare_requests.  Prints how many needed the clustering
+    replay."""
+    import tempfile
+
+    import numpy as np
+
+    from gapartnet_tpu_torch.infer import api
+
+    base, _ = bench_points()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_draws_") as tmp:
+        last = Path(tmp) / "fit_last"
+        phase_fit(smi, keep_last=last)
+        card = api.GAPartNetInference(ckpt_path=str(last), device="cuda")
+        cpu = api.GAPartNetInference(ckpt_path=str(last), device="cpu")
+    how = []
+    for i in range(draws):
+        a = 2 * np.pi * i / draws
+        rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]],
+                       np.float32)
+        pts = base.copy()
+        pts[:, :3] = base[:, :3] @ rot.T
+        how.append(compare_requests(f"visu draw {i}", card._request(pts), cpu, pts))
+    print(f"[visu draws] {draws} rotated bench clouds pass card vs CPU: "
+          + ", ".join(f"{how.count(h)} {h}" for h in ("exact", "near-ties", "replay"))
+          + f"  ({smi})")
+
+
 def inference_pair(cfg):
     """GAPartNetInference on the card and on the CPU with the same seed-0
     weights (checked equal) and auto_capacity, as a user would build it."""
@@ -1421,6 +1477,60 @@ def _cpu_post(cpu, pts, out, keep_given):
     return keep, result, jobs, fits
 
 
+def _cluster_replay(tag, got, cpu, pts, want, differ):
+    """sem_preds agree, yet the clustering's integers differ (`differ`).  The
+    hash clustering cuts the shifted set xyz + offset_preds into cells of
+    side radius / sqrt(3) and joins nodes by a radius test, so an offset
+    within the forward's tolerance of a cell face or of the radius moves a
+    point; where the node table overflows (the default capacity on a whole
+    cloud) one node more or less changes the overflow count and which nodes
+    are kept.  The card's offsets must lie within FORWARD_RTOL of the CPU's;
+    at most CELL_FLIP_SHARE of the valid shifted points may change cell, and
+    at least one where the node overflow differs; and a CPU forward that
+    clusters the card's sem_preds and offsets (its heads its own) must give
+    the card's counters and proposals exactly.  Returns that CPU forward."""
+    import numpy as np
+    import torch
+
+    from gapartnet_tpu_torch.ops.voxelize import div_const
+
+    print(f"[{tag} compare] clustering integers differing with sem_preds equal: "
+          f"{', '.join(differ)}")
+    n = len(pts)
+    card_offs = got.offset_preds[0, :n].cpu()
+    _check_close(f"{tag}: offset_preds", card_offs, want.offset_preds[0, :n])
+    xyz = torch.from_numpy(np.ascontiguousarray(pts[:, :3]))
+    valid = (want.sem_preds[0, :n] > 0).repeat(2)
+    side = cpu.cfg.ball_query_radius / 3.0 ** 0.5
+    cells = []
+    for offs in (card_offs, want.offset_preds[0, :n]):
+        both = torch.cat([xyz, xyz + offs])
+        lo = torch.where(valid[:, None], both, torch.tensor(1e9)).amin(dim=0) - side
+        cells.append(torch.floor(div_const(both - lo, side)))
+    moved = int(((cells[0] != cells[1]).any(dim=-1) & valid).sum())
+    n_valid = int(valid.sum())
+    print(f"[{tag} compare] points of the two sets in another hash cell on the card: {moved} of "
+          f"{n_valid}")
+    if moved > CELL_FLIP_SHARE * n_valid:
+        raise AssertionError(f"{tag}: {moved} shifted points changed hash cell "
+                             f"(> {CELL_FLIP_SHARE:.1%})")
+    if moved == 0 and "counter ccl_node_overflow" in differ:
+        raise AssertionError(f"{tag}: the node overflow differs with no point in another cell")
+    with torch.no_grad():
+        ref = cpu.model(cpu._wrap_points(pts), do_cluster=True, do_score=True, do_npcs=True,
+                        cluster_sem_override=got.sem_preds.cpu(),
+                        cluster_offset_override=got.offset_preds.cpu())
+    what = "(CPU clustering of the card's sem_preds and offsets)"
+    for k, v in ref.counters.items():
+        _check_equal(f"{tag}: counter {k} {what}", got.counters[k], v)
+    for f in ref.proposals._fields:
+        _check_equal(f"{tag}: proposals.{f} {what}", getattr(got.proposals, f),
+                     getattr(ref.proposals, f))
+    print(f"[{tag} compare] counters and proposals equal the CPU's clustering of the card's "
+          "sem_preds and offsets")
+    return ref
+
+
 def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
     """The same request on the CPU (same weights, same CPU-drawn RANSAC
     samples): exact sem_preds, counters, proposals, kept proposal ids,
@@ -1431,7 +1541,11 @@ def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
     the stages after the forward run on the CPU from the card's forward
     outputs and are held to the same rules, and an independent CPU forward
     on the card's proposals holds the card's scores and NPCS (except where a
-    flipped point picks the class) and counters."""
+    flipped point picks the class) and counters.  If sem_preds agree but the
+    clustering's counters or proposals differ, `_cluster_replay` explains
+    them by the offsets, and the stages after the forward run on the CPU
+    from its forward.  Returns how the forward's integers were held:
+    "exact", "near-ties" or "replay"."""
     import numpy as np
     import torch
 
@@ -1439,6 +1553,7 @@ def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
     c = cpu._request(pts, proposals_cpu)
     print(f"[{tag} compare] CPU request {time.perf_counter() - t0:.1f} s")
     g = card_req
+    how = "exact"
     flips = _near_ties(tag, g.out.sem_preds.cpu(), c.out.sem_logits)
     print(f"[{tag} compare] sem_preds differing: {flips} of {c.out.sem_preds.numel()}")
     if flips:
@@ -1460,14 +1575,23 @@ def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
         out = cpu_tree(g.out)
         keep, result, jobs, fits = _cpu_post(cpu, pts, out, keep_given)
         c = c._replace(out=out, keep=keep, result=result, jobs=jobs, fits=fits)
+        how = "near-ties"
         print(f"[{tag} compare] the stages after the forward compared from the card's forward "
               "outputs")
     else:
-        for k, v in c.out.counters.items():
-            _check_equal(f"{tag}: counter {k}", g.out.counters[k], v)
-        for f in c.out.proposals._fields:
-            _check_equal(f"{tag}: proposals.{f}", getattr(g.out.proposals, f),
-                         getattr(c.out.proposals, f))
+        differ = [f"counter {k}" for k, v in c.out.counters.items()
+                  if not torch.equal(g.out.counters[k].cpu(), v.cpu())]
+        differ += [f"proposals.{f}" for f in c.out.proposals._fields
+                   if not torch.equal(getattr(g.out.proposals, f).cpu(),
+                                      getattr(c.out.proposals, f).cpu())]
+        if differ and proposals_cpu is not None:
+            raise AssertionError(f"{tag}: {', '.join(differ)} differ with the proposals given")
+        if differ:
+            out = _cluster_replay(tag, g.out, cpu, pts, c.out, differ)
+            keep, result, jobs, fits = _cpu_post(cpu, pts, out, None)
+            c = c._replace(out=out, keep=keep, result=result, jobs=jobs, fits=fits)
+            how = "replay"
+            print(f"[{tag} compare] the stages after the forward compared from that CPU forward")
     _check_equal(f"{tag}: kept proposals", g.keep, c.keep)
     gr, cr = g.result, c.result
     for f in ("sem_preds", "ins_preds", "proposal_classes"):
@@ -1480,7 +1604,7 @@ def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
         raise AssertionError(f"{tag}: box jobs on one device only")
     if c.jobs is None:
         print(f"[{tag} compare] no box jobs")
-        return
+        return how
     for f in ("mask", "owner"):
         _check_equal(f"{tag}: jobs.{f}", torch.from_numpy(getattr(g.jobs, f)),
                      torch.from_numpy(getattr(c.jobs, f)))
@@ -1492,6 +1616,7 @@ def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
                      getattr(c.fits, f)[ok], rtol=BOX_RTOL)
     print(f"[{tag} compare] card and CPU agree: integers exactly, NPCS and scores within "
           f"{NPCS_RTOL}, {int(ok.sum())} ok boxes within {BOX_RTOL} of scale")
+    return how
 
 
 def render_depth(xyz, rgb):
@@ -1631,20 +1756,22 @@ def phase_inference_api(smi):
     return numbers
 
 
-def write_fit_dataset(root, train_clouds=FIT_TRAIN_CLOUDS):
+def write_fit_dataset(root, train_clouds=FIT_TRAIN_CLOUDS, eval_clouds=FIT_EVAL_CLOUDS,
+                      eval_only=False):
     """The fit's dataset under `root`, in the .npz layout load_cloud_file
     reads: assets/bench_cloud.npz rotated about z (entry.rotation_z), the
-    train split at `train_clouds` angles 2 pi i / train_clouds, each eval
-    split at FIT_EVAL_CLOUDS of the angles half-way between."""
+    train split at `train_clouds` angles 2 pi i / train_clouds (none with
+    `eval_only`), each eval split at `eval_clouds` of the angles half-way
+    between."""
     import numpy as np
 
     from gapartnet_tpu_torch.entry import BENCH_CLOUD, rotation_z
 
     d = np.load(BENCH_CLOUD)
     step = 2 * np.pi / train_clouds
-    angles = {"train": [i * step for i in range(train_clouds)]}
+    angles = {} if eval_only else {"train": [i * step for i in range(train_clouds)]}
     for si, split in enumerate(("val", "test_intra", "test_inter")):
-        angles[split] = [(si * FIT_EVAL_CLOUDS + j + 0.5) * step for j in range(FIT_EVAL_CLOUDS)]
+        angles[split] = [(si * eval_clouds + j + 0.5) * step for j in range(eval_clouds)]
     for split, thetas in angles.items():
         out = root / split / "pth"
         out.mkdir(parents=True)
@@ -1825,10 +1952,11 @@ def fit_kernels(cfg, model, train_raw, val_raw):
     return err
 
 
-def compare_fit_eval(cfg, model, device_batch, cpu_batch):
+def compare_fit_eval(cfg, model, device_batch, cpu_batch, tag="fit compare", eval_cfg=None):
     """One reduced eval step (trainer.reduce_eval_outputs of an eval
     forward) on the card and on the CPU with the same weights, on every
-    cloud of the batch: conf, accuracies, keep, rep_cls and counters
+    cloud of the batch, at `eval_cfg` (default: the eval capacities of
+    cfg.model): conf, accuracies, keep, rep_cls and counters
     exactly, scores and IoUs within FIT_SCORE_RTOL of scale.  On a near-tie
     sem flip (which changes the clustering) the CPU runs its forward on the
     card's proposals instead, and the selection on the card's outputs."""
@@ -1839,7 +1967,7 @@ def compare_fit_eval(cfg, model, device_batch, cpu_batch):
     from gapartnet_tpu_torch.train.loop import eval_step
     from gapartnet_tpu_torch.train.trainer import cpu_tree, host_copy, reduce_eval_outputs
 
-    ecfg = eval_capacity_config(cfg.model)
+    ecfg = eval_capacity_config(cfg.model) if eval_cfg is None else eval_cfg
     card = model.with_config(ecfg)
     cpu = GAPartNet(ecfg)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -1848,14 +1976,14 @@ def compare_fit_eval(cfg, model, device_batch, cpu_batch):
     rg = host_copy(reduce_eval_outputs(out_g, device_batch, ecfg, True))
     t0 = time.perf_counter()
     out_c = eval_step(cpu, cpu_batch, **flags)
-    print(f"[fit compare] CPU eval forward {time.perf_counter() - t0:.1f} s")
-    flips = _near_ties("fit compare", out_g.sem_preds.cpu(), out_c.sem_logits)
-    print(f"[fit compare] sem_preds differing: {flips} of {out_c.sem_preds.numel()}")
+    print(f"[{tag}] CPU eval forward {time.perf_counter() - t0:.1f} s")
+    flips = _near_ties(tag, out_g.sem_preds.cpu(), out_c.sem_logits)
+    print(f"[{tag}] sem_preds differing: {flips} of {out_c.sem_preds.numel()}")
     if flips:
         conf_c = host_copy(reduce_eval_outputs(out_c, cpu_batch, ecfg, False))["conf"]
         moved = float(abs(rg["conf"] - conf_c).sum())
         if moved > 2 * flips:
-            raise AssertionError(f"fit compare: conf moved by {moved} for {flips} flipped points")
+            raise AssertionError(f"{tag}: conf moved by {moved} for {flips} flipped points")
         with torch.no_grad():
             ref = cpu(cpu_batch, **flags, proposals_override=cpu_tree(out_g.proposals))
         rc = host_copy(reduce_eval_outputs(cpu_tree(out_g), cpu_batch, ecfg, True))
@@ -1864,7 +1992,7 @@ def compare_fit_eval(cfg, model, device_batch, cpu_batch):
         same = (out_g.proposal_sem.cpu() == ref.proposal_sem).numpy()
         rc["scores"], rc["ious"] = ref.score_preds.numpy(), ref.ious.numpy()
         mask = {"scores": same, "ious": same}
-        print("[fit compare] compared through the CPU forward on the card's proposals")
+        print(f"[{tag}] compared through the CPU forward on the card's proposals")
     else:
         rc = host_copy(reduce_eval_outputs(out_c, cpu_batch, ecfg, True))
         mask = {}
@@ -1872,26 +2000,28 @@ def compare_fit_eval(cfg, model, device_batch, cpu_batch):
         if k in ("scores", "ious"):
             got, want = torch.from_numpy(rg[k]), torch.from_numpy(rc[k])
             m = mask.get(k)
-            _check_close(f"fit compare: {k}", got, want,
+            _check_close(f"{tag}: {k}", got, want,
                          None if m is None else torch.from_numpy(m), rtol=FIT_SCORE_RTOL)
         elif k in ("all_accu", "pixel_accu", "conf") and flips:
             continue
         else:
-            _check_equal(f"fit compare: {k}", torch.as_tensor(rg[k]), torch.as_tensor(rc[k]))
+            _check_equal(f"{tag}: {k}", torch.as_tensor(rg[k]), torch.as_tensor(rc[k]))
     pad = ~cpu_batch.point_mask.any(dim=1).numpy()
     if rg["keep"][pad].any():
-        raise AssertionError(f"fit compare: a padded cloud kept {int(rg['keep'][pad].sum())} "
+        raise AssertionError(f"{tag}: a padded cloud kept {int(rg['keep'][pad].sum())} "
                              "proposals")
     counters = {k: float(v) for k, v in rg.items() if k.startswith("counters/")}
-    print(f"[fit compare] B={len(pad)} ({int(pad.sum())} padded): card and CPU agree on conf, keep "
+    print(f"[{tag}] B={len(pad)} ({int(pad.sum())} padded): card and CPU agree on conf, keep "
           f"({rg['keep'].sum(axis=1).tolist()} kept per cloud), rep_cls, counters {counters} "
           f"exactly; scores and IoUs within {FIT_SCORE_RTOL}")
 
 
-def phase_fit(smi):
+def phase_fit(smi, keep_last=None):
     """The fifth slice: fit, a frozen-trunk epoch, the CLI's resume and
-    test, and a reduced eval step against the CPU.  Returns the launch
-    counts and times for the kernel line."""
+    test, and a reduced eval step against the CPU.  With `keep_last`, the
+    fit's checkpoint `last` is copied there (for phase 14).  Returns the
+    launch counts and times for the kernel line."""
+    import shutil
     import tempfile
     import zlib
 
@@ -1980,6 +2110,8 @@ def phase_fit(smi):
 
         # a frozen-trunk epoch warm-started from `last`
         last = tmp / "fit" / "checkpoints" / "last"
+        if keep_last is not None:
+            shutil.copyfile(last, keep_last)
         fcfg = fit_config(data, tmp / "frozen", extra=(
             ("model.init_args.training_schedule", "[0, 0]"), ("trainer.max_epochs", "1"),
             ("model.init_args.ckpt", str(last))))
@@ -2671,11 +2803,12 @@ def phase_bf16(fp32_forward_ms, smi):
                 step_ms=statistics.median(step_times), ab_forward=ab_forward, ab_step=ab_step)
 
 
-def bf16_kernel_entries(numbers):
+def bf16_kernel_entries(numbers, tools=None):
     """The bf16 kernels' entries of the kernel line, with phase 11's
     numbers: launches in its timed train steps (the forward's also in its
     timed bare forwards), times summed over one B = 8 train step, bounds at
-    the bf16 peak."""
+    the bf16 peak; with `tools` (phase 14), the forward's launches in
+    eval_parity --bf16 added."""
     rows = numbers["train_rows"]
     sources = {
         "fwd_bf16": ("subm_conv_bf16", "gapartnet_tpu_torch/csrc/subm_conv_bf16.cu",
@@ -2725,6 +2858,10 @@ def bf16_kernel_entries(numbers):
                 "work": f"the 53 backbone convs of one bench-cloud forward at bf16 (B = 1; "
                         f"{TIMED_REQUESTS} forwards counted)",
             }
+            if tools is not None:
+                entry["phase14"] = tools_entry(tools, kind)
+                entry["launches"] += tools["launches"][kind]
+                entry["max_abs_err"] = max(entry["max_abs_err"], tools["max_abs_err"][kind])
         entries.append(entry)
     return entries
 
@@ -3244,8 +3381,369 @@ def phase_datagen(smi, tmp):
         foreground=[fg[d] for d in dirs], clouds=len(ingested), rejected=rejected)
 
 
+# phase 14: the checkpoint tools (the eleventh slice): the trainer's `last`
+# of phase 9 through a reference-layout .ckpt and eval_parity on a small
+# tree of rotated bench clouds (fp32 with exact clustering, then --bf16),
+# and visu with --ckpt on the bench cloud and on an OBJ that needs FPS
+TOOLS_EVAL_CLOUDS = 2               # rotated bench clouds per eval split
+TOOLS_BATCH = 2                     # eval_parity --batch: one batch per split
+# the card-vs-CPU reduced eval step: the val split's last cloud alone (the
+# CPU's exact-clustering eval forward takes ~11 s per cloud)
+TOOLS_COMPARE_BATCH = 1
+TOOLS_OBJ_EXTRA = 4000              # vertices beyond the bench cloud's 20000
+TOOLS_OBJ_JITTER = 2e-3             # std of the OBJ's seeded jitter
+TOOLS_OBJ_SEED = 14
+
+
+def reference_state_dict(sd, channels, block_repeat=2, spatial_order="xyz"):
+    """The inverse of train/ckpt_convert.convert_reference_state_dict: the
+    port's state_dict -> the reference's (spconv / Lightning) names and
+    layouts, float32 CPU tensors.  SubMConv3d / SparseConv3d /
+    SparseInverseConv3d kernels (k^3, in, out) -> (out, k, k, k, in), a
+    shortcut (in, out) -> (out, 1, 1, 1, in), nn.Linear and BatchNorm
+    tensors as they are; the score and NPCS branches only where the port's
+    state_dict has them.  Every tensor of `sd` must be written."""
+    import numpy as np
+    import torch
+
+    src = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    out, used = {}, set()
+    inverse = (3, 2, 1, 0, 4) if spatial_order == "zyx" else (3, 0, 1, 2, 4)
+
+    def take(name):
+        used.add(name)
+        return src[name]
+
+    def put(name, value):
+        out[name] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+    def conv(port, ref):
+        w = take(port)
+        k = {27: 3, 8: 2}[w.shape[0]]
+        w = np.transpose(w, (0, 2, 1)).reshape(k, k, k, w.shape[2], w.shape[1])
+        put(ref, np.transpose(w, inverse))
+
+    def linear(port, ref):
+        for leaf in ("weight", "bias"):
+            put(f"{ref}.{leaf}", take(f"{port}.{leaf}"))
+
+    def bn(port, ref):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            put(f"{ref}.{leaf}", take(f"{port}.{leaf}"))
+
+    def resblock(port, ref):
+        conv(f"{port}.conv1.kernel", f"{ref}.conv1.0.weight")
+        bn(f"{port}.bn1", f"{ref}.conv1.1")
+        conv(f"{port}.conv2.kernel", f"{ref}.conv2.0.weight")
+        bn(f"{port}.bn2", f"{ref}.conv2.1")
+        if f"{port}.shortcut_kernel" in src:
+            w = take(f"{port}.shortcut_kernel")
+            put(f"{ref}.shortcut.0.weight", w.T.reshape(w.shape[1], 1, 1, 1, w.shape[0]))
+            bn(f"{port}.shortcut_bn", f"{ref}.shortcut.1")
+
+    def ublock(port, ref, levels):
+        for r in range(block_repeat):
+            resblock(f"{port}.enc{r}", f"{ref}.encoder_blocks.{r}")
+        if levels > 1:
+            conv(f"{port}.down_kernel", f"{ref}.downsample.0.weight")
+            bn(f"{port}.down_bn", f"{ref}.downsample.1")
+            ublock(f"{port}.ublock", f"{ref}.ublock", levels - 1)
+            conv(f"{port}.up_kernel", f"{ref}.upsample.0.weight")
+            bn(f"{port}.up_bn", f"{ref}.upsample.1")
+            for r in range(block_repeat):
+                resblock(f"{port}.dec{r}", f"{ref}.decoder_blocks.{r}")
+
+    def sparse_unet(name, levels, without_stem):
+        if without_stem:
+            bn(f"{name}.stem_bn", f"{name}.stem.0")
+        else:
+            conv(f"{name}.stem_conv.kernel", f"{name}.stem.0.weight")
+            bn(f"{name}.stem_bn", f"{name}.stem.1")
+        ublock(f"{name}.ublock", f"{name}.ublock", levels)
+
+    sparse_unet("backbone", len(channels), without_stem=False)
+    linear("sem_seg_head", "sem_seg_head")
+    linear("offset_mlp0", "offset_head.0")
+    bn("offset_bn", "offset_head.1")
+    linear("offset_mlp1", "offset_head.3")
+    for unet, head in (("score_unet", "score_head"), ("npcs_unet", "npcs_head")):
+        if f"{head}.weight" in src:
+            sparse_unet(unet, 2, without_stem=True)
+            linear(head, head)
+    left = sorted(set(src) - used)
+    if left:
+        raise ValueError(f"reference_state_dict: {len(left)} tensors not written: {left[:5]}")
+    return out
+
+
+def write_reference_ckpt(path, sd, channels, block_repeat=2, spatial_order="xyz"):
+    """`sd` as the reference's Lightning checkpoint, {"state_dict": ...}."""
+    import torch
+
+    torch.save({"state_dict": reference_state_dict(sd, channels, block_repeat, spatial_order)},
+               str(path))
+
+
+def write_obj(path, xyz, rgb):
+    """'v x y z r g b' lines, as tools/visu.load_obj_points reads them."""
+    import numpy as np
+
+    with open(path, "w") as f:
+        f.write("# seeded jitter of assets/bench_cloud.npz\n")
+        np.savetxt(f, np.concatenate([xyz, rgb], axis=1), fmt="v %.6f %.6f %.6f %.6f %.6f %.6f")
+
+
+class CallProbe:
+    """Replaces attribute `name` of `owner` for the length of a `with`
+    block by a wrapper that times each call between two synchronizes and
+    reads the subm-conv counts (not reset) around it; keeps each call's
+    result."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.records = owner, name, []
+
+    def __enter__(self):
+        import torch
+
+        from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES
+
+        self.saved = getattr(self.owner, self.name)
+        fn = self.saved
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.records.append(dict(ms=(time.perf_counter() - t0) * 1e3, result=out,
+                                     launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.saved)
+
+
+def tools_parity(tag, argv, run_dir, cfg, smi, kind):
+    """eval_parity.main(argv) in its own directory under a FitProbe: every
+    eval metric name logged (the recalls of absent classes aside) and
+    finite, 53 `kind` launches and no other per eval batch.  Returns
+    (metrics, probe, seconds)."""
+    import math
+
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.tools import eval_parity
+    from gapartnet_tpu_torch.train import trainer
+
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(run_dir), FitProbe() as probe:
+        metrics = eval_parity.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    lines = _metric_lines(run_dir / "parity_metrics.jsonl")
+    if len(lines) != 1:
+        raise AssertionError(f"{tag}: {len(lines)} lines in parity_metrics.jsonl")
+    check_metric_lines(tag, lines, cfg)
+    names = trainer.eval_metric_names(cfg, True)
+    if not all(math.isfinite(v) for v in metrics.values()) or not any(
+            k.startswith("val/AP@50_") for k in metrics):
+        raise AssertionError(f"{tag}: metrics not all finite, or no per-class AP: {metrics}")
+    want = launch_counts(**{kind: CONVS_PER_FORWARD})
+    _check_launches(f"{tag} eval batch", probe.evals, lambda r: want)
+    batches = 3 * -(-TOOLS_EVAL_CLOUDS // TOOLS_BATCH)
+    if len(probe.evals) != batches or launches != launch_counts(**{kind: CONVS_PER_FORWARD * batches}):
+        raise AssertionError(f"{tag}: {len(probe.evals)} eval batches, launches {launches}")
+    (split_ms,) = [r["ms"] for r in probe.validations]
+    clouds = 3 * TOOLS_EVAL_CLOUDS
+    batch_ms = ", ".join("%.1f" % r["ms"] for r in probe.evals)
+    print(f"[{tag}] eval_parity.main {' '.join(argv[4:])}: {seconds:.1f} s in all (conversion, "
+          f"datasets, evaluation); evaluate_splits {split_ms / 1e3:.3f} s for 3 splits of "
+          f"{TOOLS_EVAL_CLOUDS} clouds: {split_ms / 3e3:.3f} s per split, "
+          f"{clouds / split_ms * 1e3:.2f} clouds/s; ms per eval batch (B = {TOOLS_BATCH}) "
+          f"{batch_ms}; {launches[kind]} {kind} launches ({CONVS_PER_FORWARD} per batch); "
+          f"{len(metrics)} of the {len(names)} eval metric names logged (the others recalls of "
+          f"classes absent from a split), all finite  ({smi})")
+    print(f"[{tag}] counters: " + ", ".join(
+        f"{k} {v:g}" for k, v in sorted(metrics.items()) if "/counters/" in k))
+    print(f"[{tag}] " + ", ".join(f"{k} {metrics[k]:.2f}" for k in (
+        "val/AP@50", "val/mAP", "val/miou", "monitor_metrics/mean_mAP")))
+    return metrics, dict(seconds=seconds, split_s=split_ms / 3e3,
+                         clouds_per_s=clouds / split_ms * 1e3,
+                         eval_batch_ms=[r["ms"] for r in probe.evals], launches=launches[kind])
+
+
+def phase_tools(smi, last, tmp):
+    """Phase 14: the checkpoint tools, at GAPartNetConfig() widths, in the
+    directory `tmp`, with phase 9's trainer checkpoint `last`.  14a: `last`
+    written as a reference-layout Lightning .ckpt and read back through
+    eval_parity's own loading, bitwise equal; 14b: eval_parity.main on 2
+    rotated bench clouds per split (exact clustering), the kernel against
+    its plain version on the hierarchy of the tool's val batch, one reduced
+    eval step (the val split's last cloud) card vs CPU;
+    then with --bf16 (the bf16 forward against its plain version); 14c:
+    visu.run with --ckpt on the bench cloud's .npz and on an OBJ of 24000
+    jittered vertices (FPS to 20000): FPS indices and predict card vs CPU
+    (phase 7's rules); the panels where cv2 is importable, else the writer
+    must refuse, naming cv2.  Returns the numbers for the kernel line.
+    Phase 9's `last` has the widths of GAPartNetConfig(), which both tools
+    build."""
+    import numpy as np
+    import torch
+
+    from gapartnet_tpu_torch.entry import BENCH_CLOUD
+    from gapartnet_tpu_torch.infer import api
+    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+    from gapartnet_tpu_torch.ops.subm_conv import reset_launches
+    from gapartnet_tpu_torch.structures import PointCloudBatch
+    from gapartnet_tpu_torch.tools import eval_parity
+    from gapartnet_tpu_torch.train import trainer
+    from gapartnet_tpu_torch.tools import visu as visu_tool
+    from gapartnet_tpu_torch.train import trainer
+    from gapartnet_tpu_torch.utils import visu
+
+    tmp = Path(tmp)
+    t = time.perf_counter()
+    numbers = {}
+
+    # 14a: the trainer's weights -> a reference-layout .ckpt -> eval_parity's loading
+    data, ref_ckpt = tmp / "data", tmp / "reference.ckpt"
+    write_fit_dataset(data, eval_clouds=TOOLS_EVAL_CLOUDS, eval_only=True)
+    argv = ["--data", str(data), "--ckpt", str(ref_ckpt), "--batch", str(TOOLS_BATCH),
+            "--clustering", "exact", "--device", "cuda"]
+    cfg = eval_parity.build_config(eval_parity.parse_args(argv))
+    trained = trainer.CkptManager.restore(str(last))["model"]
+    write_reference_ckpt(ref_ckpt, trained, cfg.model.channels, cfg.model.block_repeat)
+    back = eval_parity.load_weights(str(ref_ckpt), cfg)
+    if sorted(back) != sorted(trained):
+        raise AssertionError(f"round trip: keys differ: {sorted(set(back) ^ set(trained))[:5]}")
+    for k, v in trained.items():
+        if back[k].dtype != v.dtype or not torch.equal(back[k], v):
+            raise AssertionError(f"round trip: {k} not bitwise equal")
+    print(f"[tools round trip] phase 9's last ({len(trained)} tensors, channels "
+          f"{cfg.model.channels}, block_repeat {cfg.model.block_repeat}) -> reference layout "
+          f"{ref_ckpt.name} ({ref_ckpt.stat().st_size} bytes) -> eval_parity.load_weights: every "
+          "tensor bitwise equal")
+    t = lap("phase 14a (reference-layout round trip)", t)
+
+    # 14b: eval_parity on the card, fp32 exact, then --bf16
+    metrics, numbers["parity"] = tools_parity("tools parity", argv, tmp / "parity", cfg, smi, "fwd")
+    datasets = trainer.build_datasets(cfg, "test")
+    *_, raw = trainer._iter_batches(datasets["val"], TOOLS_BATCH, drop_last=False)
+    *_, pair_raw = trainer._iter_batches(datasets["val"], TOOLS_COMPARE_BATCH, drop_last=False)
+    model = eval_parity.build_model(cfg, back, "cuda")
+    batch = PointCloudBatch.from_numpy(raw, "cuda")
+    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg.model)
+    hier = build_hierarchy(keys, nvox, cfg.model.input_capacities(),
+                           extent=cfg.model.input_grid_extent)
+    print(f"[tools parity kernel] the tool's capacities {cfg.model.input_capacities()}, extent "
+          f"{cfg.model.input_grid_extent}; val batch voxels per level "
+          f"{[lv.num_voxels.tolist() for lv in hier.levels]}")
+    rows = phase_kernels(cfg.model, hier, "cuda", tag="tools parity kernel", timed=False)
+    numbers["max_abs_err"] = {"fwd": max(r["max_abs_err"] for r in rows)}
+    compare_fit_eval(cfg, model, PointCloudBatch.from_numpy(pair_raw, "cuda"),
+                     PointCloudBatch.from_numpy(pair_raw, "cpu"), tag="tools parity compare",
+                     eval_cfg=cfg.model)
+    del model
+    t = lap("phase 14b (eval_parity fp32, exact clustering)", t)
+    bf16_cfg = eval_parity.build_config(eval_parity.parse_args(argv + ["--bf16"]))
+    _, numbers["parity_bf16"] = tools_parity("tools parity bf16", argv + ["--bf16"],
+                                             tmp / "parity_bf16", bf16_cfg, smi, "fwd_bf16")
+    bf16_rows = phase_bf16_kernels(bf16_inference_shapes(bf16_cfg.model, hier), ("fwd_bf16",),
+                                   "tools parity bf16 kernel", timed=False)
+    numbers["max_abs_err"]["fwd_bf16"] = max(r["fwd_bf16"]["max_abs_err"] for r in bf16_rows)
+    t = lap("phase 14b (eval_parity --bf16)", t)
+
+    # 14c: visu --ckpt on the bench cloud and on an OBJ that needs FPS
+    rng = np.random.RandomState(TOOLS_OBJ_SEED)
+    bench = np.load(BENCH_CLOUD)
+    n = len(bench["xyz"])
+    pick = np.concatenate([np.arange(n), rng.choice(n, TOOLS_OBJ_EXTRA, replace=False)])
+    obj = tmp / "bench_jitter.obj"
+    write_obj(obj, bench["xyz"][pick] + rng.normal(0, TOOLS_OBJ_JITTER, (len(pick), 3)),
+              bench["rgb"][pick])
+    cpu = api.GAPartNetInference(ckpt_path=str(last), device="cpu")
+    visu_numbers = {}
+    for what, kw in (("npz", dict(input=str(BENCH_CLOUD))), ("obj", dict(obj=str(obj)))):
+        tag = f"tools visu {what}"
+        reset_launches()
+        with CallProbe(api.GAPartNetInference, "_request") as requests, \
+                CallProbe(api, "fps_downsample") as fps:
+            r = visu_tool.run(ckpt=str(last), device="cuda", **kw)
+        (req,) = requests.records
+        if req["launches"] != launch_counts(fwd=CONVS_PER_FORWARD):
+            raise AssertionError(f"{tag}: predict launched {req['launches']}")
+        counters = {k: int(v.sum()) for k, v in req["result"].out.counters.items()}
+        print(f"[{tag}] {r.name}: {len(r.points)} points, predict {req['ms']:.1f} ms "
+              f"({CONVS_PER_FORWARD} forward launches), {len(r.result.bboxes)} boxes, classes "
+              f"{r.result.proposal_classes.tolist()}; counters {counters}  ({smi})")
+        visu_numbers[what] = dict(predict_ms=req["ms"], launches=req["launches"]["fwd"])
+        if what == "obj":
+            (f,) = fps.records
+            xyz = visu_tool.load_obj_points(str(obj))[:, :3]
+            t0 = time.perf_counter()
+            idx_cpu = api.fps_downsample(xyz, cpu.cfg.max_points, device="cpu")
+            print(f"[{tag}] FPS {len(xyz)} -> {len(r.index)} points on the card {f['ms']:.1f} ms "
+                  f"(host clock around synchronizes)  ({smi}); on the CPU "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if not np.array_equal(r.index, idx_cpu):
+                raise AssertionError(f"{tag}: FPS indices differ at "
+                                     f"{int((r.index != idx_cpu).sum())} of {len(idx_cpu)}")
+            print(f"[{tag}] FPS indices identical on the card and the CPU")
+            visu_numbers[what]["fps_ms"] = f["ms"]
+        elif fps.records:
+            raise AssertionError(f"{tag}: a dataset cloud went through FPS")
+        compare_requests(tag, req["result"], cpu, r.points)
+        out_dir = tmp / "visu_out"
+        if visu.have_cv2():
+            panels = visu_tool.write_panels(str(out_dir), r)
+            print(f"[{tag}] wrote {len(panels)} panels under {out_dir}/tool/")
+        else:
+            try:
+                visu_tool.write_panels(str(out_dir), r)
+            except RuntimeError as e:
+                if "cv2" not in str(e):
+                    raise
+                print(f"[{tag}] no panels: cv2 is not installed, and write_panels says so: {e}")
+            else:
+                raise AssertionError(f"{tag}: write_panels ran without cv2")
+    numbers["visu"] = visu_numbers
+    numbers["launches"] = launch_counts(
+        fwd=numbers["parity"]["launches"] + sum(v["launches"] for v in visu_numbers.values()),
+        fwd_bf16=numbers["parity_bf16"]["launches"])
+    lap("phase 14c (visu)", t)
+    return numbers
+
+
+
+def tools_entry(tools, kind):
+    """Phase 14's part of a forward kernel's entry: its launches in
+    eval_parity's eval batches (and, fp32, visu's two requests), and the
+    tools' times."""
+    parity = tools["parity_bf16" if kind == "fwd_bf16" else "parity"]
+    entry = {
+        "launches": tools["launches"][kind], "per_eval_batch": CONVS_PER_FORWARD,
+        "eval_batches": len(parity["eval_batch_ms"]), "eval_batch_ms": parity["eval_batch_ms"],
+        "split_s": parity["split_s"], "clouds_per_s": parity["clouds_per_s"],
+        "max_abs_err": tools["max_abs_err"][kind],
+        "work": f"eval_parity{' --bf16' if kind == 'fwd_bf16' else ''} (exact clustering) over 3 "
+                f"splits of {TOOLS_EVAL_CLOUDS} rotated bench clouds, batch {TOOLS_BATCH}"
+                + (f"; visu --ckpt on the bench cloud and on an OBJ of it with {TOOLS_OBJ_EXTRA} "
+                   "more jittered vertices (FPS)" if kind == "fwd" else ""),
+    }
+    if kind == "fwd":
+        entry["visu"] = tools["visu"]
+    return entry
+
+
 def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None, fit=None,
-                dp=None, exact=None, pointnet=None, datagen=None):
+                dp=None, exact=None, pointnet=None, datagen=None, tools=None):
     """The {"kernels": [...]} entries: per kernel, its launches in the main
     path's run (None when it did not run), its times summed over one B = 8
     train step (forward: with the 53 inference convs beside them, and the
@@ -3256,7 +3754,9 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
     `pointnet` (phase 12), the launches of the exact-clustering forwards and
     requests and of the PointNet train steps, added to `launches`; with
     `datagen` (phase 13), the launches of the rendered view's predict_depth
-    and of the train steps on the ingested clouds, added to `launches`."""
+    and of the train steps on the ingested clouds, added to `launches`; with
+    `tools` (phase 14), the forward launches of eval_parity's batches and
+    visu's requests, added to the forward's `launches`."""
     flops = sum(r["flops"] * r["per_forward"] for r in rows)
     nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
     inference_bound, inference_by = _bound(flops, nbytes)
@@ -3384,6 +3884,10 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
             entry_["phase13"] = p13
             entry_["launches"] += p13["launches"]
             entry_["max_abs_err"] = max(entry_["max_abs_err"], p13["max_abs_err"])
+        if tools is not None and kind == "fwd":
+            entry_["phase14"] = tools_entry(tools, kind)
+            entry_["launches"] += tools["launches"][kind]
+            entry_["max_abs_err"] = max(entry_["max_abs_err"], tools["max_abs_err"][kind])
         kernels.append(entry_)
     return kernels
 
@@ -3417,6 +3921,10 @@ def main():
                         help="build, then hold N bf16 card train steps with atomic and N "
                              "with deterministic scatter-adds against the CPU step (phase "
                              "11c's check as a distribution) and stop")
+    parser.add_argument("--visu-draws", type=int, default=0, metavar="N",
+                        help="build, run phase 9's fit, then hold N rotated bench clouds "
+                             "through visu's default-capacity request on the card against "
+                             "the CPU (phase 14c's check as a distribution) and stop")
     parser.add_argument("--port-root", type=Path, default=ROOT,
                         help="the checkout whose gapartnet_tpu_torch is measured (default: "
                              "this script's); with another, the SASS design check only prints")
@@ -3465,6 +3973,11 @@ def main():
     if args.compare_draws:
         phase_compare_draws(args.compare_draws, smi)
         lap("compare draws", t)
+        print(smi)
+        return
+    if args.visu_draws:
+        phase_visu_draws(args.visu_draws, smi)
+        lap("visu draws", t)
         print(smi)
         return
 
@@ -3536,8 +4049,11 @@ def main():
     api = phase_inference_api(smi)
     t = lap("phase 7 (inference API)", t)
 
-    # phase 9: the trainer (the fifth slice's main path)
-    fit = phase_fit(smi)
+    # phase 9: the trainer (the fifth slice's main path); its `last` is
+    # kept for phase 14
+    tools_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tools_")
+    last = Path(tools_tmp.name) / "fit_last"
+    fit = phase_fit(smi, keep_last=last)
     t = lap("phase 9 (trainer)", t)
 
     # phase 10: data-parallel training (the sixth slice's main path)
@@ -3561,14 +4077,20 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_datagen_") as tmp:
         datagen = phase_datagen(smi, tmp)
-    lap("phase 13 (datagen, predict_depth, train steps)", t)
+    t = lap("phase 13 (datagen, predict_depth, train steps)", t)
+
+    # phase 14: the checkpoint tools (the eleventh slice) on phase 9's `last`
+    torch.cuda.empty_cache()
+    tools = phase_tools(smi, last, tools_tmp.name)
+    tools_tmp.cleanup()
+    lap("phase 14 (tools: eval_parity, visu)", t)
     lap("total", start)
 
     # phase 8: the kernel line, then the device line
     print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
                                              train_launches, api, fit, dp, exact, pointnet,
-                                             datagen)
-                      + bf16_kernel_entries(bf16)}))
+                                             datagen, tools)
+                      + bf16_kernel_entries(bf16, tools)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

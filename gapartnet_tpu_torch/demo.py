@@ -3,7 +3,8 @@ instances, NPCS and part boxes out.
 
     python -m gapartnet_tpu_torch.demo [--points cloud.npz|cloud.pth |
         --depth depth.npy --K K.npy [--rgb rgb.npy] | --asset DIR]
-        [--weights model.pt] [--seed S] [--device cuda|cpu] [--out demo_out]
+        [--weights model.pt | --ckpt checkpoints/last] [--seed S]
+        [--device cuda|cpu] [--out demo_out]
 
 Without an input it runs on the committed real cloud assets/bench_cloud.npz.
 `--rgb` is an (H, W, 3) uint8 array in BGR order, as cv2 reads images.
@@ -12,8 +13,10 @@ datagen/synthetic.generate_assets writes them): one labelled view of it is
 rendered without SAPIEN (datagen/assets.render_view_maps, seeded by
 `--seed`) and sent through predict_depth, as a camera's RGB-D frame would
 be; the demo prints how often the predicted classes agree with the
-render's labels.  Without `--weights` (a state_dict saved with torch.save)
-the weights are random, drawn from `--seed`.  Prints a one-line summary,
+render's labels.  `--weights` is a state_dict saved with torch.save,
+`--ckpt` a checkpoint of the port's trainer (`train.cli fit` writes
+`checkpoints/last`); without either the weights are random, drawn from
+`--seed`.  Prints a one-line summary,
 writes the result to <out>/demo_result.npz and, as the JAX demo does, five panels
 (pc, sem_pred, ins_pred, npcs_pred, bbox_pred) and their grid under
 <out>/demo/ through utils/visu.py.  Writing the panels needs cv2; without
@@ -56,11 +59,15 @@ def main(argv=None):
     ap.add_argument("--rgb", default="", help="(H, W, 3) BGR uint8 .npy")
     ap.add_argument("--asset", default="", help="raw asset dir (URDF + meshes) to render a view of")
     ap.add_argument("--weights", default="", help="state_dict .pt (default: random weights)")
+    ap.add_argument("--ckpt", default="", help="a checkpoint of the port's trainer (e.g. "
+                    "checkpoints/last of train.cli fit)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and of the asset's view")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="demo_out")
     args = ap.parse_args(argv)
+    if args.weights and args.ckpt:
+        ap.error("--weights and --ckpt exclude each other")
 
     from gapartnet_tpu_torch.config import GAPartNetConfig
     from gapartnet_tpu_torch.data.loader import load_cloud_file
@@ -75,7 +82,8 @@ def main(argv=None):
     # real clouds overflow the divisor-schedule voxel capacities at the mid
     # levels: size them from the input
     infer = GAPartNetInference(cfg=cfg, state_dict=args.weights or None, seed=args.seed,
-                               auto_capacity=True, device=args.device)
+                               auto_capacity=True, device=args.device,
+                               ckpt_path=args.ckpt or None)
     extra, trans = {}, None
     if args.depth:
         if not args.K:
@@ -94,7 +102,7 @@ def main(argv=None):
         result, pts, trans = view["result"], view["points"], view["trans"]
         extra = dict(point_index=view["index"], trans=trans)
         print(f"[demo] sem agreement vs render labels: {view['agreement']:.3f} "
-              "(random weights ~ chance unless --weights given)")
+              "(random weights ~ chance unless --weights or --ckpt given)")
     else:
         d = load_cloud_file(args.points or str(BENCH_CLOUD))
         pts = d["points"][: cfg.max_points]

@@ -177,8 +177,12 @@ class GAPartNetInference:
 
     `state_dict`: the model's weights, as a mapping (for example
     `weights.params_from_jax(variables)`) or the path of a `.pt` file
-    holding one; without it the weights are drawn from `seed`
-    (`weights.init_weights`).  `auto_capacity` sizes the backbone's level
+    holding one; `ckpt_path`: a checkpoint of the port's trainer
+    (`train/trainer.CkptManager`, e.g. `checkpoints/last`), whose `model`
+    weights are loaded; at most one of the two.  Without either the
+    weights are drawn from `seed` (`weights.init_weights`).  Every load is
+    strict and reads tensors only (`weights_only=True`).
+    `auto_capacity` sizes the backbone's level
     capacities and grid extent from the first cloud (1024-point and 32-cell
     buckets) and only ever grows them; the weights are capacity-independent
     and stay.  Sets TF32 off (`entry.use_fp32_math`)."""
@@ -190,13 +194,20 @@ class GAPartNetInference:
         seed: int = 0,
         auto_capacity: bool = False,
         device="cuda",
+        ckpt_path: Optional[Union[str, os.PathLike]] = None,
     ):
+        if state_dict is not None and ckpt_path:
+            raise ValueError("GAPartNetInference: pass state_dict or ckpt_path, not both")
         use_fp32_math()
         self.device = torch.device(device)
         self.auto_capacity = auto_capacity
         self._capacity_fitted = False
         self.cfg = cfg or GAPartNetConfig()
         model = GAPartNet(self.cfg)
+        if ckpt_path:
+            from gapartnet_tpu_torch.train.trainer import CkptManager
+
+            state_dict = CkptManager.restore(ckpt_path)["model"]
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:

@@ -37,7 +37,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stderr
     # every module of the slices so far was imported
-    assert int(r.stdout.strip().splitlines()[-1]) >= 49
+    assert int(r.stdout.strip().splitlines()[-1]) >= 63
 
 
 def test_training_slice_modules_exist():
@@ -82,6 +82,19 @@ def test_every_jax_module_has_a_counterpart():
     for f in sorted(jax_pkg.rglob("*.py")) + sorted(jax_pkg.rglob("*.json")):
         rel = f.relative_to(jax_pkg).as_posix()
         assert (PORT / renamed.get(rel, rel)).exists(), rel
+
+
+def test_checkpoint_tools_slice_modules_exist():
+    """The tools that drive a checkpoint, as a subpackage of the port; they
+    import nothing of the JAX package's tools/ either."""
+    names = ("tools/__init__.py", "tools/eval_parity.py", "tools/visu.py",
+             "tools/visualize_render.py")
+    for name in names:
+        assert (PORT / name).exists(), name
+    jax_tools = {p.stem for p in (ROOT / "tools").glob("*.py")} | {"tools"}
+    for name in names:
+        mods = {m.split(".")[0] for m in _imported_modules(PORT / name)}
+        assert not mods & (jax_tools | set(FORBIDDEN)), (name, mods & jax_tools)
 
 
 def test_data_parallel_slice_modules_exist():
