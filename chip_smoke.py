@@ -17,12 +17,12 @@ source, in parallel), then:
   2. holds the submanifold-conv kernel against its plain PyTorch version on
      every distinct (level, Cin, Cout) of the backbone, on the real
      hierarchy of assets/bench_cloud.npz, and times both with CUDA events
-     around each call (median of 20 launches, wrapper host time included),
+     around each call (median of 10 launches, wrapper host time included),
      and the kernel alone by its device time per launch (torch.profiler,
-     median of three windows of 20 launches);
+     median of three windows of 10 launches);
   3. drives the flagship inference forward on the card (bench-cloud
      capacities and clustering overrides, seeded random weights): 5
-     warm-ups, then 30 timed requests (median and spread); it checks that
+     warm-ups, then 20 timed requests (median and spread); it checks that
      the kernel launched exactly 53 times per forward, that every capacity
      counter is zero and that every output is finite; it profiles one
      forward for its device time;
@@ -37,8 +37,8 @@ source, in parallel), then:
      dgrad and wgrad kernels against their plain versions at every distinct
      (V, Cin, Cout) of the backbone and the two proposal UNets, checks that
      the wgrad is bitwise repeatable, and times all six (CUDA events,
-     median of 20) and the three kernels' device time (profiler); then
-     drives `train_step` (all three stages, Adam 1e-3): 3 warm-ups and 20
+     median of 10) and the three kernels' device time (profiler); then
+     drives `train_step` (all three stages, Adam 1e-3): 3 warm-ups and 10
      timed steps, checking the launch counts per step, zero counters,
      finite losses, a moving loss and moving BN statistics; profiles one
      step;
@@ -50,7 +50,7 @@ source, in parallel), then:
   7. the inference API at the flagship config with the eval capacities of
      train/trainer.py:452, seeded random weights, auto_capacity: predict on
      the bench cloud and predict_with_masks on its ground-truth instances
-     (3 warm-ups, 5 timed requests each), predict_depth on a depth frame
+     (3 warm-ups, 3 timed requests each), predict_depth on a depth frame
      rendered from the cloud (1 warm-up, 2 timed requests; FPS timed
      alone); the kernel against its plain version on the hierarchy each of
      the three builds; 53 forward launches per request; the time of each
@@ -64,7 +64,7 @@ source, in parallel), then:
      1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
   8. prints the wall time of each phase, one {"kernels": [...]} JSON line
      (the fp32 kernels, then the bf16 ones), the nvidia-smi line and, last,
-     the device line {"ok": true, "device": {...}}, after phase 14;
+     the device line {"ok": true, "device": {...}}, after phase 15;
   9. the trainer (the fifth slice's main path), in a temporary directory:
      a dataset of assets/bench_cloud.npz rotated about z (48 train clouds,
      3 per eval split, so each eval split ends in a padded batch);
@@ -105,7 +105,7 @@ source, in parallel), then:
      dgrad and wgrad kernels against their plain versions at its own
      shapes, takes 2 warm-up steps (the first held against the one-process
      step: the ranks' summed losses and the running statistics within 1e-4
-     of magnitude, gradients within phase 6's allowance) and 3 timed
+     of magnitude, gradients within phase 6's allowance) and 2 timed
      steps (77 / 76 / 77 launches per step, zero counters, finite losses;
      ms per step, all-reduces per step, gradient bytes per step), checks
      its parameters and buffers bitwise against rank 0's, and times the
@@ -127,18 +127,18 @@ source, in parallel), then:
      version) beside their bound at the bf16 tensor-core peak and the HBM
      rate, with the bytes the call reads (fp32 rows, no copy) printed
      beside the bound's bf16 bytes; the bare forward, 5 warm-ups
-     and 30 timed (53 fwd_bf16 launches each and no fp32 subm-conv launch,
+     and 20 timed (53 fwd_bf16 launches each and no fp32 subm-conv launch,
      zero counters, finite outputs, a profile with the cuDNN bf16 rows),
-     printed beside phase 3's fp32 median, then 10 fp32 and 10 bf16
+     printed beside phase 3's fp32 median, then 6 fp32 and 6 bf16
      forwards in turns (the same weights; an A/B free of the host's drift
      over the call); the same forward on the CPU
      (integers exactly, sem_preds outside near-ties, floats within 1e-4 of
      scale plus twice what two CPU probes with every BatchNorm output moved
      by +-1 fp32 ulp move them: a bf16 network carries an fp32 rounding
      difference on as flipped bf16 roundings); train_step at B = 8 (3
-     warm-ups, 20 timed, 77 / 76 / 77 bf16 launches and no fp32 one, zero
-     counters, moving losses and statistics, a profile), then 5 fp32 and
-     5 bf16 steps in turns; one card step, with PyTorch's deterministic
+     warm-ups, 10 timed, 77 / 76 / 77 bf16 launches and no fp32 one, zero
+     counters, moving losses and statistics, a profile), then 3 fp32 and
+     3 bf16 steps in turns; one card step, with PyTorch's deterministic
      scatter-adds, against the CPU step at B = 2 with phase 6's allowance,
      plus the probes' move for losses and running statistics, and for
      gradients BF16_KINK_FACTOR times the probes' move and one bf16 ulp of
@@ -147,19 +147,19 @@ source, in parallel), then:
      12a, exact clustering (GAPartNetConfig(clustering_impl="exact"), the
      reference's first-K ball query and list CCL, ops/ball_query.py and
      ops/ccl.py) on the bench cloud with the overrides, the proposal cap
-     and dense pool fitted to it: 3 warm-ups, then 20 exact forwards in
-     turns with 20 hash forwards (each exact forward: 53 forward launches,
+     and dense pool fitted to it: 3 warm-ups, then 10 exact forwards in
+     turns with 10 hash forwards (each exact forward: 53 forward launches,
      2 ball queries, 2 CCLs, counted around it; zero counters); the ball
      query and the CCL of both sets alone (ms per call by CUDA events,
      kernel ms and launches by the profiler, tiles and CCL iterations, each
      a host sync) and against the CPU (neighbour lists, counts, labels
-     exactly); the forward against the CPU (phase 4's rules); 3
+     exactly); the forward against the CPU (phase 4's rules); 2
      GAPartNetInference.predict requests with exact clustering at the eval
      capacities against the CPU (phase 7's rules, counters equal to the
      CPU's); 12b, the PointNet backbone (GAPartNetConfig(backbone_type=
      "PointNet")) at phase 5's B = 8 batch and capacities: the forward,
      dgrad and wgrad kernels against their plain versions at the proposal
-     UNets' shapes of this step, 2 warm-ups and 10 timed train steps (24 /
+     UNets' shapes of this step, 2 warm-ups and 5 timed train steps (24 /
      24 / 24 launches per step, zero counters), a profiled step, one
      deterministic B = 2 step against the CPU (phase 6's allowance, with
      phase 11's terms for rounding-sensitive steps but the bf16 ulp: the
@@ -213,7 +213,34 @@ source, in parallel), then:
      offsets must give the card's integers; --visu-draws N: this check
      over N rotated clouds, then stop); the panels where cv2 is
      importable, else write_panels must raise naming cv2.  The kernel line
-     adds phase 14's launches to the fp32 and bf16 forwards' counts.
+     adds phase 14's launches to the fp32 and bf16 forwards' counts;
+ 15. the sustained staged-training tool (the twelfth slice's main path):
+     `python -m gapartnet_tpu_torch.tools.sustained_run --two-phase
+     --freeze-trunk-b --sem-alpha auto --add-zoom --device cuda` through
+     its main(argv), in a temporary directory, at GAPartNetConfig() widths
+     (make_cfg: bf16 conv compute, hash clustering, auto_capacity, 20000
+     points, B = 8), cut on one [cut] line: the reference's two real
+     assets replaced by generated stand-ins, the view plans cut to 10
+     distant and 2 close-up views (every split non-empty), phase A to 2
+     epochs and phase B to 3 (one validation each).  It checks (a) each
+     split's clouds against the cut plan's allocation under the tool's
+     skip rule; (b) phase_a_done and a _recall_gmp_ best checkpoint of
+     phase A; (c) every parameter and running statistic under the five
+     frozen prefixes of checkpoints/last bitwise equal to best_a's; (d)
+     both tests (last, best) under the tool's zero-overflow contract
+     (GAPARTNET_CHECKS and GAPARTNET_ALLOW_OVERFLOW unset for the run) and
+     their test_metrics files; the bf16 launches of every train step (53 /
+     52 / 53 in phase A, 77 / 24 / 24 in the frozen phase B) and eval
+     forward (53), none fp32; then the diagnostics on the run's
+     checkpoints, (f): confusion_diag on 2 val views on the card and on
+     the CPU (tables equal up to near-tie sem flips, the tolerance with a
+     BatchNorm-ulp CPU probe's allowance), proposal_diag (gt per class =
+     the split's instances, born >= iou50 >= match-gt, born >= scored >=
+     kept), margin_diag (a finite row per checkpoint) and a 1-epoch
+     valley_probe (its trajectory); (e) the bf16 forward, dgrad and wgrad
+     against their plain versions at the run's shapes (phase B's train
+     batch, the val split's padded batch).  The kernel line adds phase
+     15's launches to the bf16 kernels' counts.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -230,6 +257,7 @@ kernels, then the kernel line (launches null) and the nvidia-smi line (no
 phase 10 or 11).
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -239,6 +267,7 @@ import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1907,14 +1936,15 @@ def run_cli(tag, args, cwd, torchrun=False):
     return r.stdout
 
 
-def fit_kernels(cfg, model, train_raw, val_raw):
+def fit_kernels(cfg, model, train_raw, val_raw, tag="fit"):
     """The forward, dgrad and wgrad kernels against their plain versions at
     the fit's own shapes: the backbone hierarchy of a fit train batch
     (`train_raw`, at the fit's auto_capacity levels) and the proposal grid
     of a train forward on it (clustering on the fitted sem head, on a copy
     of `model` so that its running statistics stay), and the forward at
     every backbone shape of the eval model's hierarchy of `val_raw` (the
-    val split's padded batch).  Returns the largest max|d| of each
+    val split's padded batch).  The bf16 kernels (phase 11a's rules) where
+    cfg.model computes in bf16.  Returns the largest max|d| of each
     kernel."""
     import torch
 
@@ -1937,17 +1967,26 @@ def fit_kernels(cfg, model, train_raw, val_raw):
         out = probe.train()(batch, do_cluster=True, do_score=True, do_npcs=True,
                             jitter=draw_jitter(torch.Generator().manual_seed(cfg.trainer.seed)))
     hier, prop = hierarchy(mcfg, batch), out.proposal_grid
-    print(f"[fit kernel] B={batch.batch_size} train batch: voxels per level (max over B) "
+    print(f"[{tag} kernel] B={batch.batch_size} train batch: voxels per level (max over B) "
           f"{[int(lv.num_voxels.max()) for lv in hier.levels]} of {mcfg.input_capacities()}; live "
           f"proposals {out.proposals.num_proposals.tolist()}, proposal voxels "
           f"{prop.levels[0].num_voxels.tolist()} of {mcfg.proposal_capacities()}")
-    rows = phase_train_kernels(train_conv_shapes(mcfg, hier, prop), tag="fit kernel", timed=False)
-    err = {k: max(r[k]["max_abs_err"] for r in rows) for k in ("fwd", "dgrad", "wgrad")}
+    shapes = train_conv_shapes(mcfg, hier, prop)
     ecfg = eval_capacity_config(mcfg)
     ehier = hierarchy(ecfg, PointCloudBatch.from_numpy(val_raw, "cuda"))
-    print(f"[fit eval kernel] B={val_raw['points'].shape[0]} val batch (the last cloud padded): "
+    print(f"[{tag} eval kernel] B={val_raw['points'].shape[0]} val batch (the last cloud padded): "
           f"voxels per level {[lv.num_voxels.tolist() for lv in ehier.levels]}")
-    erows = phase_kernels(ecfg, ehier, "cuda", tag="fit eval kernel", timed=False)
+    if mcfg.conv_compute_dtype == "bfloat16":
+        rows = phase_bf16_kernels(bf16_train_shapes(shapes), BF16_KINDS, f"{tag} kernel",
+                                  timed=False)
+        err = {k: max(r[k]["max_abs_err"] for r in rows) for k in BF16_KINDS}
+        erows = phase_bf16_kernels(bf16_inference_shapes(ecfg, ehier), ("fwd_bf16",),
+                                   f"{tag} eval kernel", timed=False)
+        err["fwd_bf16"] = max(err["fwd_bf16"], *(r["fwd_bf16"]["max_abs_err"] for r in erows))
+        return err
+    rows = phase_train_kernels(shapes, tag=f"{tag} kernel", timed=False)
+    err = {k: max(r[k]["max_abs_err"] for r in rows) for k in ("fwd", "dgrad", "wgrad")}
+    erows = phase_kernels(ecfg, ehier, "cuda", tag=f"{tag} eval kernel", timed=False)
     err["fwd"] = max(err["fwd"], *(r["max_abs_err"] for r in erows))
     return err
 
@@ -2738,11 +2777,11 @@ def phase_bf16(fp32_forward_ms, smi):
 
     The bf16 forward, dgrad and wgrad kernels against their plain versions
     at every backbone shape of bench_cloud_setup and every training shape
-    of train_setup at bf16; the bare forward (5 warm-ups, 30 timed, 53
+    of train_setup at bf16; the bare forward (5 warm-ups, 20 timed, 53
     fwd_bf16 launches each and no fp32 one, zero counters, a profile), and
     in turns with the fp32 forward;
     the same forward on the CPU at B = 1 (integers exactly, floats within
-    the probes' allowance); train_step at B = 8 (3 warm-ups, 20 timed,
+    the probes' allowance); train_step at B = 8 (3 warm-ups, 10 timed,
     77 / 76 / 77 bf16 launches, zero counters, moving losses, a profile),
     and in turns with the fp32 step;
     one card step against the CPU step at B = 2 (phase 6's allowance and
@@ -2803,12 +2842,13 @@ def phase_bf16(fp32_forward_ms, smi):
                 step_ms=statistics.median(step_times), ab_forward=ab_forward, ab_step=ab_step)
 
 
-def bf16_kernel_entries(numbers, tools=None):
+def bf16_kernel_entries(numbers, tools=None, sustained=None):
     """The bf16 kernels' entries of the kernel line, with phase 11's
     numbers: launches in its timed train steps (the forward's also in its
     timed bare forwards), times summed over one B = 8 train step, bounds at
     the bf16 peak; with `tools` (phase 14), the forward's launches in
-    eval_parity --bf16 added."""
+    eval_parity --bf16 added; with `sustained` (phase 15), each kernel's
+    launches in the sustained run and its diagnostics added."""
     rows = numbers["train_rows"]
     sources = {
         "fwd_bf16": ("subm_conv_bf16", "gapartnet_tpu_torch/csrc/subm_conv_bf16.cu",
@@ -2862,8 +2902,31 @@ def bf16_kernel_entries(numbers, tools=None):
                 entry["phase14"] = tools_entry(tools, kind)
                 entry["launches"] += tools["launches"][kind]
                 entry["max_abs_err"] = max(entry["max_abs_err"], tools["max_abs_err"][kind])
+        if sustained is not None:
+            entry["phase15"] = sustained_entry(sustained, kind)
+            entry["launches"] += sustained["launches"][kind]
+            entry["max_abs_err"] = max(entry["max_abs_err"], sustained["max_abs_err"][kind])
         entries.append(entry)
     return entries
+
+
+def sustained_entry(sustained, kind):
+    """Phase 15's part of a bf16 kernel's entry: its launches in the
+    sustained run (per train step of each phase, per eval forward) and in
+    the diagnostics, and the run's times."""
+    return {
+        "launches": sustained["launches"][kind],
+        "per_step": {"phase_a": SUSTAINED_LAUNCHES_PER_STEP[False][kind],
+                     "phase_b_frozen": SUSTAINED_LAUNCHES_PER_STEP[True][kind]},
+        "per_eval_forward": SUSTAINED_EVAL_LAUNCHES[kind],
+        "steps": {"phase_a": sustained["steps"][False], "phase_b": sustained["steps"][True]},
+        "max_abs_err": sustained["max_abs_err"][kind],
+        "work": "tools/sustained_run --two-phase --freeze-trunk-b --sem-alpha auto --add-zoom at "
+                f"B = {SUSTAINED_BATCH} on 10 distant and 2 close-up rendered views (phase A "
+                f"{SUSTAINED_EPOCHS_A} epochs, phase B {SUSTAINED_EPOCHS_B}, a validation each, "
+                "two tests); confusion_diag, proposal_diag, margin_diag and a "
+                f"{VALLEY_EPOCHS}-epoch valley_probe on its checkpoints",
+    }
 
 
 # phase 12: the model's other two configurations.  12a: exact clustering
@@ -3497,10 +3560,10 @@ class CallProbe:
     """Replaces attribute `name` of `owner` for the length of a `with`
     block by a wrapper that times each call between two synchronizes and
     reads the subm-conv counts (not reset) around it; keeps each call's
-    result."""
+    result, and with `keep_args` its arguments."""
 
-    def __init__(self, owner, name):
-        self.owner, self.name, self.records = owner, name, []
+    def __init__(self, owner, name, keep_args=False):
+        self.owner, self.name, self.records, self.keep_args = owner, name, [], keep_args
 
     def __enter__(self):
         import torch
@@ -3518,6 +3581,8 @@ class CallProbe:
             torch.cuda.synchronize()
             self.records.append(dict(ms=(time.perf_counter() - t0) * 1e3, result=out,
                                      launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+            if self.keep_args:
+                self.records[-1].update(args=args, kw=kw)
             return out
 
         setattr(self.owner, self.name, wrapper)
@@ -3603,7 +3668,6 @@ def phase_tools(smi, last, tmp):
     from gapartnet_tpu_torch.ops.subm_conv import reset_launches
     from gapartnet_tpu_torch.structures import PointCloudBatch
     from gapartnet_tpu_torch.tools import eval_parity
-    from gapartnet_tpu_torch.train import trainer
     from gapartnet_tpu_torch.tools import visu as visu_tool
     from gapartnet_tpu_torch.train import trainer
     from gapartnet_tpu_torch.utils import visu
@@ -3720,6 +3784,347 @@ def phase_tools(smi, last, tmp):
     lap("phase 14c (visu)", t)
     return numbers
 
+
+
+# phase 15: the sustained staged-training tool (tools/sustained_run.py) and
+# its four diagnostics, at GAPartNetConfig() widths (make_cfg's bf16, hash
+# clustering, auto_capacity, B = 8), in a temporary directory.  Cuts: the
+# reference's two real assets are generated stand-ins; the view plans are
+# cut to 10 distant and 2 zoom views, every split non-empty; the epochs are
+# cut so that each phase validates once
+SUSTAINED_STANDINS = {"Box": 1, "Microwave": 1}    # REAL_SEEN, REAL_INTER
+SUSTAINED_STANDIN_SEED = 1
+SUSTAINED_EPOCHS_A = 2                              # phase A validates every 2 epochs
+SUSTAINED_EPOCHS_B = 3                              # phase B every 3
+SUSTAINED_BATCH = TRAIN_BATCH                       # make_cfg's --batch default
+SUSTAINED_CONFUSION_LIMIT = 2
+VALLEY_EPOCHS = 1
+SPLIT_NAMES = ("train", "val", "test_intra", "test_inter")
+# bf16 launches per train step by do_npcs: sem + offset only (phase A, the
+# valley probe: the 53 backbone convs, a dgrad for all but the stem), and
+# all stages with the trunk frozen (phase B: the 24 proposal-UNet convs
+# alone run a dgrad and a wgrad)
+SUSTAINED_LAUNCHES_PER_STEP = {False: launch_counts(fwd_bf16=53, dgrad_bf16=52, wgrad_bf16=53),
+                               True: launch_counts(fwd_bf16=77, dgrad_bf16=24, wgrad_bf16=24)}
+SUSTAINED_EVAL_LAUNCHES = launch_counts(fwd_bf16=CONVS_PER_FORWARD)
+
+
+def sustained_view_plan(by_name):
+    """sustained_run.view_plan cut to 10 distant views of four of its
+    assets: train 6, val 2, test_intra 1, test_inter 1."""
+    from gapartnet_tpu_torch.tools import sustained_run as sr
+
+    return {
+        "real_seen": (sr.REAL_SEEN, 5, (0,), [("train", 2), ("val", 2), ("test_intra", 1)]),
+        "Box_0": (by_name["Box_0"], 2, (0,), [("train", 2)]),
+        "Remote_0": (by_name["Remote_0"], 2, (0,), [("train", 2)]),
+        "real_inter": (sr.REAL_INTER, 1, (0, 1), [("test_inter", 1)]),
+    }
+
+
+def sustained_zoom_plan(by_name):
+    """sustained_run.zoom_plan cut to its first two assets, one close-up
+    each, both to train (which then holds one B = 8 batch)."""
+    from gapartnet_tpu_torch.tools import sustained_run as sr
+
+    return [(sr.REAL_SEEN, (sr.HANDLE, sr.ROUND_HANDLE), 0.10, 1, [("train", 1)]),
+            (by_name.get("Box_0"), (sr.HANDLE,), 0.15, 1, [("train", 1)])]
+
+
+def planned_counts(plan, rendered, zoom_allocs):
+    """Clouds per split under the tool's rules: each distant asset's
+    rendered names cut by its allocations in order (a skipped view costs
+    the last allocation only), plus each close-up asset's allocation after
+    zoom_allocation."""
+    counts = dict.fromkeys(SPLIT_NAMES, 0)
+    for (_, _, _, alloc), got in zip(plan.values(), rendered):
+        pos = 0
+        for split, count in alloc:
+            counts[split] += max(0, min(pos + count, got) - pos)
+            pos += count
+    for alloc in zoom_allocs:
+        for split, count in alloc:
+            counts[split] += count
+    return counts
+
+
+def split_instances(split_dir, num_classes):
+    """GT instances per class in a split's .npz files: each instance id's
+    class is the label of its first point (data/instances.py)."""
+    import numpy as np
+
+    counts = np.zeros(num_classes, np.int64)
+    for f in sorted(Path(split_dir).glob("*.npz")):
+        d = np.load(f)
+        ids, first = np.unique(d["instance_labels"], return_index=True)
+        for i, j in zip(ids, first):
+            if i >= 0:
+                counts[int(d["sem_labels"][j])] += 1
+    return counts
+
+
+def phase_sustained(smi, tmp):
+    """Phase 15: `python -m gapartnet_tpu_torch.tools.sustained_run
+    --two-phase --freeze-trunk-b --sem-alpha auto --add-zoom --device cuda`
+    through its main(argv) in the directory `tmp`, the real assets replaced
+    by generated stand-ins, the view plans and epochs cut; then the four
+    diagnostics on its checkpoints.  Checks: (a) each split's clouds are
+    the cut plan's allocation under the tool's skip rule; (b) phase A wrote
+    phase_a_done and a _recall_gmp_ checkpoint; (c) phase B left every
+    frozen parameter and running statistic bitwise at best_a's; (d) both
+    tests ran under the zero-overflow contract (the tool raises on a
+    nonzero counter; GAPARTNET_ALLOW_OVERFLOW is unset for the run) and
+    wrote their metrics; (e) the bf16 kernels against their plain versions
+    at the run's shapes; (f) confusion_diag card vs CPU (integer tables
+    equal up to near-tie flips), proposal_diag's and margin_diag's tables
+    consistent, valley_probe's trajectory.  Every train step and eval
+    forward is checked for its bf16 launches.  Returns the numbers for the
+    kernel line."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from gapartnet_tpu_torch.datagen.synthetic import generate_assets
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.tools import confusion_diag, margin_diag, proposal_diag, valley_probe
+    from gapartnet_tpu_torch.tools import sustained_run as sr
+    from gapartnet_tpu_torch.train import trainer
+
+    tmp = Path(tmp)
+    t = time.perf_counter()
+    data, wd = tmp / "data", tmp / "run"
+    seen, inter = generate_assets(str(tmp / "standins"), SUSTAINED_STANDINS,
+                                  seed=SUSTAINED_STANDIN_SEED)
+    argv = ["--workdir", str(wd), "--data", str(data), "--two-phase", "--freeze-trunk-b",
+            "--sem-alpha", "auto", "--add-zoom", "--epochs-a", str(SUSTAINED_EPOCHS_A),
+            "--epochs", str(SUSTAINED_EPOCHS_B), "--device", "cuda"]
+    full = sum(v[1] for v in sr.view_plan(collections.defaultdict(str)).values())
+    cut = sum(v[1] for v in sustained_view_plan(collections.defaultdict(str)).values())
+    defaults = sr.parse_args(["--data", str(data)])
+    print(f"[sustained] [cut] REAL_SEEN and REAL_INTER (the reference's 45780 and 102442, not "
+          f"yet committed under assets/example_assets) -> generated stand-ins {Path(seen).name}, {Path(inter).name} (seed "
+          f"{SUSTAINED_STANDIN_SEED}); distant views {full} -> {cut}, close-ups "
+          f"{sum(z[3] for z in sr.zoom_plan({}))} -> {sum(z[3] for z in sustained_zoom_plan({}))}; "
+          f"epochs: phase A {defaults.epochs_a} -> {SUSTAINED_EPOCHS_A}, phase B "
+          f"{defaults.epochs} -> {SUSTAINED_EPOCHS_B} (one validation each); widths not cut "
+          f"(GAPartNetConfig(), {defaults.points} points, B = {defaults.batch})")
+    rendered, zoom_allocs, fits = [], [], []
+    render_views, zoom_allocation, fit = sr.render_views, sr.zoom_allocation, trainer.fit
+
+    def counted_render_views(*args, **kw):
+        names = render_views(*args, **kw)
+        rendered.append(len(names))
+        return names
+
+    def recorded_zoom_allocation(alloc, n):
+        out = zoom_allocation(alloc, n)
+        zoom_allocs.append(out)
+        return out
+
+    def recorded_fit(cfg, device="cuda"):
+        t0 = time.perf_counter()
+        state = fit(cfg, device=device)
+        torch.cuda.synchronize()
+        fits.append(dict(cfg=cfg, state=state, s=time.perf_counter() - t0))
+        return state
+
+    # the environment is put back afterwards (run_test sets GAPARTNET_CHECKS);
+    # the contract binds: GAPARTNET_ALLOW_OVERFLOW is unset for the run
+    with contextlib.ExitStack() as patches:
+        patches.enter_context(unittest.mock.patch.dict(os.environ))
+        for k in ("GAPARTNET_CHECKS", "GAPARTNET_ALLOW_OVERFLOW"):
+            os.environ.pop(k, None)
+        for owner, name, value in (
+                (sr, "REAL_SEEN", seen), (sr, "REAL_INTER", inter),
+                (sr, "view_plan", sustained_view_plan), (sr, "zoom_plan", sustained_zoom_plan),
+                (sr, "render_views", counted_render_views),
+                (sr, "zoom_allocation", recorded_zoom_allocation), (trainer, "fit", recorded_fit)):
+            patches.enter_context(unittest.mock.patch.object(owner, name, value))
+        reset_launches()
+        t0 = time.perf_counter()
+        with FitProbe() as probe, CallProbe(trainer, "test") as tests, \
+                CallProbe(sr, "build_dataset") as build, \
+                CallProbe(sr, "append_zoom_views") as zoom:
+            sr.main(argv)
+        main_s = time.perf_counter() - t0
+        main_launches = dict(LAUNCHES)
+        plan = sustained_view_plan({p.name: str(p) for p in (data / "synth_assets").iterdir()})
+    print(f"[sustained] sustained_run.main {' '.join(argv[4:])}: {main_s:.1f} s in all; "
+          f"renders {build.records[0]['ms'] / 1e3:.1f} s for {sum(rendered)} distant views, "
+          f"{zoom.records[0]['ms'] / 1e3:.1f} s for {sum(sum(c for _, c in a) for a in zoom_allocs)} "
+          f"close-ups (host render, FPS on the card); fits "
+          f"{', '.join('%.1f' % f['s'] for f in fits)} s; tests "
+          f"{', '.join('%.1f' % (r['ms'] / 1e3) for r in tests.records)} s  ({smi})")
+    t = lap("phase 15 (sustained_run.main)", t)
+
+    # (a) the data tree
+    want = planned_counts(plan, rendered, zoom_allocs)
+    got = {s: len(list((data / s / "pth").glob("*.npz"))) for s in SPLIT_NAMES}
+    if got != want or not all(got.values()):
+        raise AssertionError(f"sustained (a): clouds per split {got}, the plan's allocation "
+                             f"under the skip rule {want} (rendered {rendered}, zoom {zoom_allocs})")
+    print(f"[sustained] (a) clouds per split {got} = the cut plan's allocation (rendered "
+          f"{rendered} of {[v[1] for v in plan.values()]} distant views, zoom allocations "
+          f"{zoom_allocs}); every split non-empty")
+
+    # (b) phase A's outputs
+    best_a = sr.best_ckpt(wd / "checkpoints_a", "val/recall_gmp")
+    if not (wd / "phase_a_done").exists() or best_a is None or "_recall_gmp_" not in best_a.name:
+        raise AssertionError(f"sustained (b): phase_a_done {(wd / 'phase_a_done').exists()}, "
+                             f"best_a {best_a}")
+    print(f"[sustained] (b) phase_a_done written; best_ckpt(checkpoints_a, val/recall_gmp) = "
+          f"{best_a.name}")
+
+    # (c) the frozen trunk
+    _, fit_b = fits
+    if tuple(fit_b["cfg"].trainer.freeze_prefixes) != FREEZE:
+        raise AssertionError(f"sustained (c): phase B froze {fit_b['cfg'].trainer.freeze_prefixes}")
+    ref = trainer.CkptManager.restore(str(best_a))["model"]
+    last = trainer.CkptManager.restore(str(wd / "checkpoints" / "last"))["model"]
+    frozen = [k for k in ref if k.split(".", 1)[0] in FREEZE]
+    changed = [k for k in frozen if not torch.equal(last[k], ref[k])]
+    if changed or not frozen:
+        raise AssertionError(f"sustained (c): {len(changed)} frozen tensors changed: {changed[:5]}")
+    heads = ("score_unet", "score_head", "npcs_unet", "npcs_head")
+    moved = sum(k.split(".", 1)[0] in heads and not torch.equal(last[k], ref[k]) for k in ref)
+    print(f"[sustained] (c) phase B (warm start {best_a.name}, {FREEZE} frozen): all "
+          f"{len(frozen)} frozen tensors (parameters and running statistics) in checkpoints/last "
+          f"bitwise equal to best_a's; {moved} score / NPCS tensors moved")
+
+    # (d) the tests under the zero-overflow contract
+    for tag in ("last", "best"):
+        m = json.loads((wd / f"test_metrics_{tag}.json").read_text())
+        counters = {k: v for k, v in m.items() if "counters" in k}
+        if not counters or any(v != 0 for v in counters.values()) or not all(
+                math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"sustained (d): test_metrics_{tag}.json counters {counters}")
+        print(f"[sustained] (d) test[{tag}]: {len(m)} metrics, all finite; {len(counters)} "
+              f"counters all 0; mean_mAP {m['monitor_metrics/mean_mAP']:.2f}, val/pixel_accu "
+              f"{m['val/pixel_accu']:.2f}, val/miou {m['val/miou']:.2f}")
+    if len(tests.records) != 2 or not (wd / "test_metrics.json").exists():
+        raise AssertionError(f"sustained (d): {len(tests.records)} tests, test_metrics.json "
+                             f"{(wd / 'test_metrics.json').exists()}")
+
+    # the launches of every train step and eval forward of the run
+    _check_launches("sustained step", probe.steps,
+                    lambda r: SUSTAINED_LAUNCHES_PER_STEP[r["key"]])
+    _check_launches("sustained eval forward", probe.evals, lambda r: SUSTAINED_EVAL_LAUNCHES)
+    steps_per_epoch = got["train"] // SUSTAINED_BATCH
+    want_steps = {False: SUSTAINED_EPOCHS_A * steps_per_epoch,
+                  True: SUSTAINED_EPOCHS_B * steps_per_epoch}
+    n_steps = {k: sum(r["key"] == k for r in probe.steps) for k in (False, True)}
+    total = {k: sum(r["launches"][k] for r in probe.steps + probe.evals) for k in main_launches}
+    if n_steps != want_steps or main_launches != total or any(main_launches[k] for k in KINDS[:3]):
+        raise AssertionError(f"sustained: steps {n_steps} (expected {want_steps}), launches "
+                             f"{main_launches} (steps and eval forwards: {total})")
+    step_ms = {k: [r["ms"] for r in probe.steps if r["key"] == k] for k in (False, True)}
+    print(f"[sustained] launches {main_launches} in {n_steps[False]} phase-A and {n_steps[True]} "
+          f"phase-B steps ({SUSTAINED_LAUNCHES_PER_STEP[False]} / "
+          f"{SUSTAINED_LAUNCHES_PER_STEP[True]} per step) and {len(probe.evals)} eval forwards "
+          f"({SUSTAINED_EVAL_LAUNCHES['fwd_bf16']} fwd_bf16 each); no fp32 launch")
+    print(f"[sustained] ms per train step: phase A {', '.join('%.1f' % m for m in step_ms[False])}; "
+          f"phase B {', '.join('%.1f' % m for m in step_ms[True])}; ms per eval forward "
+          f"{', '.join('%.1f' % r['ms'] for r in probe.evals)}; ms per split validation "
+          f"{', '.join('%.1f' % (r['ms'] / 3) for r in probe.validations)}  ({smi})")
+    _print_counters("sustained phase A", _metric_lines(wd / "fit_phase_a.jsonl"))
+    _print_counters("sustained phase B", _metric_lines(wd / "fit_phase_b.jsonl"))
+
+    # (f) the diagnostics on the run's checkpoints, on the card
+    t = time.perf_counter()
+    ckpt = str(wd / "checkpoints" / "last")
+    conf_argv = ["--data", str(data), "--ckpt", ckpt, "--splits", "val", "--limit",
+                 str(SUSTAINED_CONFUSION_LIMIT)]
+    t0 = time.perf_counter()
+    with CallProbe(trainer, "eval_step") as card_views:
+        card_conf = confusion_diag.main(conf_argv + ["--workdir", str(tmp / "conf_card"),
+                                                     "--device", "cuda"])
+    conf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = proposal_diag.main(["--workdir", str(wd), "--data", str(data), "--split", "val",
+                                "--device", "cuda"])
+    proposal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = margin_diag.main(["--workdir", str(wd), "--data", str(data), "--device", "cuda"])
+    margin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with FitProbe() as vprobe:
+        trajectory = valley_probe.main(["--data", str(data), "--workdir", str(tmp / "valley"),
+                                        "--tag", "chip", "--epochs", str(VALLEY_EPOCHS),
+                                        "--device", "cuda"])
+    valley_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    diag_launches = {k: LAUNCHES[k] - main_launches[k] for k in LAUNCHES}
+    _check_launches("valley step", vprobe.steps, lambda r: SUSTAINED_LAUNCHES_PER_STEP[r["key"]])
+    _check_launches("confusion view", card_views.records, lambda r: SUSTAINED_EVAL_LAUNCHES)
+    print(f"[sustained diag] on the card: confusion_diag {conf_s:.1f} s ({len(card_views.records)} "
+          f"views at B = 1, sem only), proposal_diag {proposal_s:.1f} s, margin_diag "
+          f"{margin_s:.1f} s, valley_probe {valley_s:.1f} s ({len(vprobe.steps)} steps); "
+          f"launches {diag_launches}  ({smi})")
+
+    # confusion_diag on the CPU from the same checkpoint; its views' eval
+    # steps once more with every BatchNorm output moved by +-1 fp32 ulp (the
+    # bf16 allowance)
+    t0 = time.perf_counter()
+    with CallProbe(trainer, "eval_step", keep_args=True) as cpu_views:
+        cpu_conf = confusion_diag.main(conf_argv + ["--workdir", str(tmp / "conf_cpu"),
+                                                    "--device", "cpu"])
+    with bn_ulp_probe(NET_PROBES[0]):
+        probes = [trainer.eval_step(*r["args"], **r["kw"]) for r in cpu_views.records]
+    print(f"[sustained diag] confusion_diag on the CPU, and its views' BatchNorm-ulp probe: "
+          f"{time.perf_counter() - t0:.1f} s")
+    flips = 0
+    for i, (g, c, p) in enumerate(zip(card_views.records, cpu_views.records, probes)):
+        g, c = g["result"], c["result"]
+        allow = _probe_allow("sem_logits", [p], c)
+        tol = FORWARD_RTOL * float(c.sem_logits.abs().max()) + allow
+        flips += _near_ties(f"confusion view {i}", g.sem_preds.cpu(), c.sem_logits.cpu(), tol=tol)
+    (agg_g, rows_g), = card_conf.values()
+    (agg_c, rows_c), = cpu_conf.values()
+    moved = int(np.abs(agg_g - agg_c).sum())
+    if len(card_views.records) != SUSTAINED_CONFUSION_LIMIT or moved > 2 * flips or (
+            not flips and [r[:2] for r in rows_g] != [r[:2] for r in rows_c]):
+        raise AssertionError(f"sustained (f): confusion card vs CPU: {moved} entries moved by "
+                             f"{flips} near-tie flips")
+    print(f"[sustained] (f) confusion_diag val --limit {SUSTAINED_CONFUSION_LIMIT}: card and CPU "
+          f"tables {'equal' if not moved else f'{moved} entries apart'}; sem_preds differing at "
+          f"{flips} near-ties (tolerance with the probe's allowance); {int(agg_g.sum())} points")
+
+    # proposal_diag's table against the split's instances; margin_diag's rows
+    counts = split_instances(data / "val" / "pth", len(agg_g))
+    for c_id in range(1, len(counts)):
+        gt, _, born, iou50, scored, kept, match_gt, _ = table.get(c_id, [0] * 8)
+        if gt != counts[c_id] or not (born >= iou50 >= match_gt and born >= scored >= kept):
+            raise AssertionError(f"sustained (f): proposal_diag class {c_id}: {table.get(c_id)}, "
+                                 f"{counts[c_id]} GT instances in the split")
+    print(f"[sustained] (f) proposal_diag val: gt per class = the split's instances "
+          f"{counts[1:].tolist()}; born >= iou50 >= match-gt and born >= scored >= kept in every "
+          f"row ({len(table)} rows)")
+    names = sorted(p.name for p in (wd / "checkpoints").iterdir()
+                   if p.name.startswith("epoch_")) + ["last"]
+    if [r[0] for r in rows] != names or not all(
+            all(math.isfinite(v) for v in r[1:]) and 0 <= r[4] <= 1 and 0 <= r[5] <= 100
+            and r[2] <= r[3] for r in rows):
+        raise AssertionError(f"sustained (f): margin_diag rows {rows}")
+    print(f"[sustained] (f) margin_diag: {len(rows)} rows ({', '.join(names)}), finite, "
+          f"p50 <= p90, frac>0 in [0, 1], predfg% in [0, 100]")
+    if not trajectory or "train_pixel_accu" not in trajectory[0]:
+        raise AssertionError(f"sustained (f): valley_probe trajectory {trajectory}")
+    print(f"[sustained] (f) valley_probe {VALLEY_EPOCHS} epoch: trajectory {trajectory}")
+    t = lap("phase 15f (diagnostics)", t)
+
+    # (e) the bf16 kernels at the run's shapes: phase B's train batch and
+    # the val split's padded batch
+    cfg_b, model_b = fit_b["cfg"], fit_b["state"].model
+    datasets = trainer.build_datasets(cfg_b, "fit")
+    train_raw = next(trainer._iter_batches(datasets["train"], SUSTAINED_BATCH, drop_last=True,
+                                           shuffle_seed=cfg_b.trainer.seed + 1))
+    *_, val_raw = trainer._iter_batches(datasets["val"], SUSTAINED_BATCH, drop_last=False)
+    err = fit_kernels(cfg_b, model_b, train_raw, val_raw, tag="sustained")
+    print(f"[sustained] (e) bf16 kernels vs plain at the run's shapes: max|d| {err}")
+    lap("phase 15e (kernels)", t)
+    launches = {k: main_launches[k] + diag_launches[k] for k in LAUNCHES}
+    return dict(launches=launches, steps=n_steps, max_abs_err=err)
 
 
 def tools_entry(tools, kind):
@@ -4083,14 +4488,21 @@ def main():
     torch.cuda.empty_cache()
     tools = phase_tools(smi, last, tools_tmp.name)
     tools_tmp.cleanup()
-    lap("phase 14 (tools: eval_parity, visu)", t)
+    t = lap("phase 14 (tools: eval_parity, visu)", t)
+
+    # phase 15: the sustained staged-training tool and its diagnostics (the
+    # twelfth slice), in a temporary directory
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sustained_") as tmp:
+        sustained = phase_sustained(smi, tmp)
+    lap("phase 15 (sustained_run, diagnostics)", t)
     lap("total", start)
 
     # phase 8: the kernel line, then the device line
     print(json.dumps({"kernels": kernel_line(rows, entry_rows, launches, train_rows,
                                              train_launches, api, fit, dp, exact, pointnet,
                                              datagen, tools)
-                      + bf16_kernel_entries(bf16, tools)}))
+                      + bf16_kernel_entries(bf16, tools, sustained)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
-"""Command-line tools of the PyTorch port that drive a checkpoint
-(counterparts of the JAX package's tools/eval_parity.py, tools/visu.py and
-tools/visualize_render.py).  Each runs as
+"""Command-line tools of the PyTorch port (counterparts of the JAX
+package's tools/): the tools that drive a checkpoint (eval_parity, visu,
+visualize_render), and the sustained staged-training run (sustained_run)
+with the four diagnostics built on its config (confusion_diag,
+margin_diag, proposal_diag, valley_probe).  Each runs as
 `python -m gapartnet_tpu_torch.tools.<name>`, with the JAX tool's flags
 and `--device` (default cuda)."""
 

@@ -97,6 +97,38 @@ def test_checkpoint_tools_slice_modules_exist():
         assert not mods & (jax_tools | set(FORBIDDEN)), (name, mods & jax_tools)
 
 
+def test_sustained_tools_slice_modules_exist():
+    """The sustained staged-training tool and the four diagnostics built on
+    its make_cfg, beside the checkpoint tools; they import nothing of the
+    JAX package's tools/ either."""
+    names = ("tools/sustained_run.py", "tools/confusion_diag.py", "tools/margin_diag.py",
+             "tools/proposal_diag.py", "tools/valley_probe.py")
+    jax_tools = {p.stem for p in (ROOT / "tools").glob("*.py")} | {"tools"}
+    for name in names:
+        assert (PORT / name).exists(), name
+        mods = {m.split(".")[0] for m in _imported_modules(PORT / name)}
+        assert not mods & (jax_tools | set(FORBIDDEN)), (name, mods & jax_tools)
+
+
+# JAX tools with no counterpart in the port: the TPU-era instruments, and
+# the two benchmarks that the port's own bench is to replace
+UNPORTED_TOOLS = {"attribution_bench", "backbone_bench", "ccl_bench", "cluster_stage_bench",
+                  "conv_microbench", "model_cluster_bench", "rulebook_bench", "stage_bench",
+                  "watchdog_run", "eval_bench", "train_bench"}
+
+
+def test_every_jax_tool_has_a_counterpart():
+    """Each tool of tools/ that drives the JAX package has a module of the
+    same name under the port's tools/, apart from UNPORTED_TOOLS; the tools
+    that import nothing of it (make_splits, convert_pth_to_npz) serve the
+    port as they are."""
+    for f in sorted((ROOT / "tools").glob("*.py")):
+        drives = any(m.split(".")[0] == "gapartnet_tpu" for m in _imported_modules(f))
+        if drives and f.stem not in UNPORTED_TOOLS:
+            assert (PORT / "tools" / f.name).exists(), f.name
+    assert all((ROOT / "tools" / f"{name}.py").exists() for name in UNPORTED_TOOLS)
+
+
 def test_data_parallel_slice_modules_exist():
     for name in ("parallel/__init__.py", "parallel/dist.py"):
         assert (PORT / name).exists(), name
