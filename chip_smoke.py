@@ -55,8 +55,8 @@ source, in parallel), then:
      alone); the kernel against its plain version on the hierarchy each of
      the three builds; 53 forward launches per request; the time of each
      request split into forward, selection (NMS), host scatter and RANSAC
-     (CUDA events), with the device time of the selection, RANSAC and FPS
-     alone;
+     (the program's `request:*` spans, host clock), with the device time
+     of the selection, RANSAC and FPS alone;
      every counter printed (zero for the masks); each request again on the
      CPU with the same weights and RANSAC samples: integers (sem_preds,
      instances, kept proposals, classes, FPS indices, inlier masks, ok
@@ -1384,26 +1384,20 @@ def bench_points():
 
 def timed_request(infer, pts, proposals=None):
     """One request through GAPartNetInference's stages on the card (the
-    stages of predict; with `proposals`, of predict_with_masks), a CUDA event
-    after each.  Returns (Request, {stage: ms between events})."""
+    stages of predict; with `proposals`, of predict_with_masks) under the
+    program's recorder.  Returns (Request, {stage: ms}): each stage's
+    `request:<stage>` span, host clock; the last stage ends in its copy of
+    the boxes, which waits for the card."""
     import torch
 
-    events = {}
-
-    def mark(stage):
-        events[stage] = torch.cuda.Event(enable_timing=True)
-        events[stage].record()
+    from gapartnet_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
-    req = infer._request(pts, proposals, mark=mark)
-    torch.cuda.synchronize()
-    split, prev = {}, start
-    for stage in STAGES:
-        split[stage] = prev.elapsed_time(events[stage])
-        prev = events[stage]
-    return req, split
+    with profiling.record() as rec:
+        req = infer._request(pts, proposals)
+        torch.cuda.synchronize()
+    spans = rec.summary()
+    return req, {stage: spans[f"request:{stage}"]["ms"] for stage in STAGES}
 
 
 def busy_ms(fn):
@@ -1473,7 +1467,7 @@ def report_split(tag, infer, pts, proposals=None, requests=PREDICT_REQUESTS):
     if req.jobs is not None:
         device["ransac"] = busy_ms(lambda: infer._fit(req.jobs, 100, 0))
     counters = {k: int(v.sum()) for k, v in req.out.counters.items()}
-    print(f"[{tag}] split, median over {requests} requests (CUDA events; ms): " + ", ".join(
+    print(f"[{tag}] split, median over {requests} requests (host clock, program spans; ms): " + ", ".join(
         f"{s} {med[s]:.3f}" for s in STAGES) + f"; total {sum(med.values()):.3f}")
     print(f"[{tag}] device time alone (profiler): " + ", ".join(
         f"{s} {_fmt(ms)} ms in {n} kernels" for s, (ms, n) in device.items()))
@@ -3128,7 +3122,7 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
     card, cpu = inference_pair(eval_capacity_config(GAPartNetConfig(clustering_impl="exact")))
     ptimes, plaunches = run_requests("exact predict", lambda: card.predict(pts), EXACT_PREDICTS, 1, smi)
     req, split = timed_request(card, pts)
-    print(f"[exact predict] split (CUDA events; ms): " + ", ".join(
+    print(f"[exact predict] split (host clock, program spans; ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()) + f"; proposals "
         f"{int(req.out.proposals.num_proposals[0])}, kept {int(req.keep.sum())}; counters "
         f"{ {k: int(v.sum()) for k, v in req.out.counters.items()} }")

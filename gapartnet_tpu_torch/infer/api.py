@@ -10,7 +10,9 @@ kept proposal (reference structure/utils.py:118-192, structure/gapartnet.py
 selection (NMS) on the device; one copy of the outputs to the host, where
 the instance and NPCS maps are scattered and the box-fitting jobs are laid
 out; the RANSAC fits of all jobs at once on the device, with minimal samples
-drawn on the CPU (`ops.umeyama.ransac_samples`).
+drawn on the CPU (`ops.umeyama.ransac_samples`).  Each stage is a span of
+utils/profiling.py (`request:forward`, `request:select`, `request:scatter`,
+`request:ransac`, under `request`).
 """
 
 import dataclasses
@@ -35,6 +37,7 @@ from gapartnet_tpu_torch.ops.umeyama import (
     umeyama_masked,
 )
 from gapartnet_tpu_torch.structures import PointCloudBatch
+from gapartnet_tpu_torch.utils.profiling import span
 from gapartnet_tpu_torch.weights import init_weights
 
 NPCS_BACKGROUND = 230.0 / 255.0  # reference fill (structure/utils.py:155)
@@ -127,6 +130,19 @@ class Request(NamedTuple):
     fits: Optional[PoseFit]     # on the device
     ok: np.ndarray              # (J,) bool
     boxes: np.ndarray           # (J, 8, 3)
+
+
+def _to_host(site: str, t: torch.Tensor) -> np.ndarray:
+    """`t` as a NumPy array: the copy waits for the device (span `site`)."""
+    with span(site):
+        return t.cpu().numpy()
+
+
+def _to_device(site: str, t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`: the copy waits for the device's queue
+    first (span `site`)."""
+    with span(site):
+        return t.to(device)
 
 
 def _last_writes(points: np.ndarray) -> np.ndarray:
@@ -243,8 +259,8 @@ class GAPartNetInference:
             raise ValueError(f"{n} points exceed max_points {cap}")
         pts = np.pad(points.astype(np.float32), ((0, cap - n), (0, 0)))
         return PointCloudBatch(
-            points=torch.from_numpy(pts)[None].to(self.device),
-            point_mask=(torch.arange(cap) < n)[None].to(self.device),
+            points=_to_device("sync:inputs", torch.from_numpy(pts)[None], self.device),
+            point_mask=_to_device("sync:inputs", (torch.arange(cap) < n)[None], self.device),
             pc_ids=["inference"],
         )
 
@@ -271,9 +287,9 @@ class GAPartNetInference:
         prop = out.proposals
         cls = _proposal_pred_classes(prop, out.sem_preds)
         keep, ep, pid, em, scores, npcs, sem, cls = (
-            t.cpu().numpy() for t in (keep, prop.entry_point[0], prop.entry_proposal[0],
-                                      prop.entry_mask[0], out.score_preds[0], out.npcs_preds[0],
-                                      out.sem_preds[0], cls[0]))
+            _to_host("sync:outputs", t) for t in (keep, prop.entry_point[0], prop.entry_proposal[0],
+                                                  prop.entry_mask[0], out.score_preds[0],
+                                                  out.npcs_preds[0], out.sem_preds[0], cls[0]))
         kept_ids = np.nonzero(keep)[0]
         rank_of = np.full(len(keep), -1, np.int64)
         rank_of[kept_ids] = np.arange(len(kept_ids))
@@ -297,33 +313,36 @@ class GAPartNetInference:
     def _fit(self, jobs: FitJobs, ransac_iters: int, seed: int) -> PoseFit:
         """RANSAC + Umeyama over every job at once on the device; the
         minimal samples come from a CPU generator seeded with `seed`."""
-        samples = ransac_samples(torch.from_numpy(jobs.mask), ransac_iters,
-                                 torch.Generator().manual_seed(seed))
-        src, tgt, mask, samples = (torch.as_tensor(a).to(self.device)
+        with span("ransac:samples"):
+            samples = ransac_samples(torch.from_numpy(jobs.mask), ransac_iters,
+                                     torch.Generator().manual_seed(seed))
+        src, tgt, mask, samples = (_to_device("sync:fit_inputs", torch.as_tensor(a), self.device)
                                    for a in (jobs.src, jobs.tgt, jobs.mask, samples))
-        return ransac_pose_from_npcs(src, tgt, mask, samples)
+        with span("ransac:fit"):
+            return ransac_pose_from_npcs(src, tgt, mask, samples)
 
     def _request(self, points: np.ndarray, proposals: Optional[SampleProposals] = None,
-                 ransac_iters: int = 100, min_bbox_points: int = 10, seed: int = 0,
-                 mark=None) -> Request:
+                 ransac_iters: int = 100, min_bbox_points: int = 10, seed: int = 0) -> Request:
         """One request in its four stages: the forward; the selection (the
         filter and NMS, or with given proposals all of them); the host
         scatter; the RANSAC fits, with their ok flags and boxes copied to
-        the host.  `mark(stage)`, if given, is called after each stage."""
-        mark = mark or (lambda stage: None)
-        out = self._forward(points, proposals)
-        mark("forward")
-        keep = self._select(out) if proposals is None else proposals.proposal_mask[0]
-        mark("select")
-        result, jobs = self._scatter(points, out, keep, min_bbox_points)
-        mark("scatter")
-        fits, ok, boxes = None, np.zeros(0, bool), np.zeros((0, 8, 3), np.float32)
-        if jobs is not None:
-            fits = self._fit(jobs, ransac_iters, seed)
-            ok, boxes = fits.ok.cpu().numpy(), fits.bbox.cpu().numpy()
-        result.bboxes = [boxes[j] for j in np.nonzero(ok)[0]]
-        mark("ransac")
-        return Request(out, keep, result, jobs, fits, ok, boxes)
+        the host.  Spans (utils/profiling.py): `request`, and in it
+        `request:forward`, `request:select`, `request:scatter` and
+        `request:ransac`."""
+        with span("request"):
+            with span("request:forward"):
+                out = self._forward(points, proposals)
+            with span("request:select"):
+                keep = self._select(out) if proposals is None else proposals.proposal_mask[0]
+            with span("request:scatter"):
+                result, jobs = self._scatter(points, out, keep, min_bbox_points)
+            with span("request:ransac"):
+                fits, ok, boxes = None, np.zeros(0, bool), np.zeros((0, 8, 3), np.float32)
+                if jobs is not None:
+                    fits = self._fit(jobs, ransac_iters, seed)
+                    ok, boxes = _to_host("sync:boxes", fits.ok), _to_host("sync:boxes", fits.bbox)
+                result.bboxes = [boxes[j] for j in np.nonzero(ok)[0]]
+            return Request(out, keep, result, jobs, fits, ok, boxes)
 
     def predict(self, points: np.ndarray, ransac_iters: int = 100, min_bbox_points: int = 10,
                 seed: int = 0) -> InferenceResult:
@@ -351,7 +370,8 @@ class GAPartNetInference:
             pos += k
 
         def dev(a):
-            return torch.from_numpy(np.asarray(a))[None].to(self.device)
+            return _to_device("sync:mask_proposals", torch.from_numpy(np.asarray(a))[None],
+                              self.device)
 
         return SampleProposals(
             entry_point=dev(entry_point),

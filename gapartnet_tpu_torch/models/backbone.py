@@ -13,6 +13,10 @@ Geometry (GridHierarchy) is built once per forward outside the modules.
     UNets): BN + ReLU on the input only;
   * all convs bias-free.
 
+The stem, each level's encoder (its ResBlocks and the downsample) and
+decoder (the upsample, the skip concatenation, its ResBlocks) are spans of
+utils/profiling.py: `unet:stem`, `unet:encoder`, `unet:decoder`.
+
 Every MaskedBatchNorm follows the module's train / eval mode
 (`nn.Module.train()`), which carries the JAX package's `train` flag.
 
@@ -39,6 +43,7 @@ from gapartnet_tpu_torch.ops.sparse_conv import (
     linear_conv_apply,
 )
 from gapartnet_tpu_torch.ops.subm_conv import subm_conv
+from gapartnet_tpu_torch.utils.profiling import span
 
 
 def _kernel(*shape: int) -> nn.Parameter:
@@ -109,22 +114,24 @@ class UBlock(nn.Module):
         li = self.level
         lv = hierarchy.levels[li]
         nbr, mask = lv.subm_nbr, lv.voxel_mask
-        x = features
-        for r in range(self.block_repeat):
-            x = getattr(self, f"enc{r}")(x, nbr, mask)
-        if not self.has_child:
-            return x
-        skip = x
-        ds = hierarchy.downsamples[li]
-        nxt = hierarchy.levels[li + 1]
-        x = downsample_conv_apply(x, ds, self.down_kernel, nxt.keys.shape[-1])
-        x = torch.relu(self.down_bn(x, nxt.voxel_mask))
+        with span("unet:encoder"):
+            x = features
+            for r in range(self.block_repeat):
+                x = getattr(self, f"enc{r}")(x, nbr, mask)
+            if not self.has_child:
+                return x
+            skip = x
+            ds = hierarchy.downsamples[li]
+            nxt = hierarchy.levels[li + 1]
+            x = downsample_conv_apply(x, ds, self.down_kernel, nxt.keys.shape[-1])
+            x = torch.relu(self.down_bn(x, nxt.voxel_mask))
         x = self.ublock(x, hierarchy)
-        x = inverse_conv_apply(x, ds, self.up_kernel)
-        x = torch.relu(self.up_bn(x, mask))
-        x = torch.cat([x, skip], dim=-1).contiguous()
-        for r in range(self.block_repeat):
-            x = getattr(self, f"dec{r}")(x, nbr, mask)
+        with span("unet:decoder"):
+            x = inverse_conv_apply(x, ds, self.up_kernel)
+            x = torch.relu(self.up_bn(x, mask))
+            x = torch.cat([x, skip], dim=-1).contiguous()
+            for r in range(self.block_repeat):
+                x = getattr(self, f"dec{r}")(x, nbr, mask)
         return x
 
 
@@ -142,6 +149,7 @@ class SparseUNet(nn.Module):
 
     def forward(self, features: torch.Tensor, hierarchy: GridHierarchy) -> torch.Tensor:
         lv0 = hierarchy.levels[0]
-        x = features if self.stem_conv is None else self.stem_conv(features, lv0.subm_nbr)
-        x = torch.relu(self.stem_bn(x, lv0.voxel_mask))
+        with span("unet:stem"):
+            x = features if self.stem_conv is None else self.stem_conv(features, lv0.subm_nbr)
+            x = torch.relu(self.stem_bn(x, lv0.voxel_mask))
         return self.ublock(x, hierarchy)

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from gapartnet_tpu_torch.models.backbone import ResBlock, SparseUNet, UBlock
+from gapartnet_tpu_torch.utils.profiling import span
 
 
 def _mask(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
@@ -121,20 +122,22 @@ def _dense_res_block(blk: ResBlock, x: torch.Tensor, occ: torch.Tensor, cd, act)
 
 
 def _dense_ublock(ub: UBlock, x: torch.Tensor, occ: torch.Tensor, cd, act) -> torch.Tensor:
-    for r in range(ub.block_repeat):
-        x = _dense_res_block(getattr(ub, f"enc{r}"), x, occ, cd, act)
-    if not ub.has_child:
-        return x
-    skip = x
-    occ2 = downsample_occupancy(occ)
-    x = dense_down_conv(x, ub.down_kernel, cd)
-    x = _mask(torch.relu(_cast(ub.down_bn(x, occ2), act)), occ2)
+    with span("unet:encoder"):
+        for r in range(ub.block_repeat):
+            x = _dense_res_block(getattr(ub, f"enc{r}"), x, occ, cd, act)
+        if not ub.has_child:
+            return x
+        skip = x
+        occ2 = downsample_occupancy(occ)
+        x = dense_down_conv(x, ub.down_kernel, cd)
+        x = _mask(torch.relu(_cast(ub.down_bn(x, occ2), act)), occ2)
     x = _dense_ublock(ub.ublock, x, occ2, cd, act)
-    x = dense_up_conv(x, ub.up_kernel, cd)
-    x = _mask(torch.relu(_cast(ub.up_bn(x, occ), act)), occ)
-    x = torch.cat([x, skip.to(x.dtype)], dim=-1)
-    for r in range(ub.block_repeat):
-        x = _dense_res_block(getattr(ub, f"dec{r}"), x, occ, cd, act)
+    with span("unet:decoder"):
+        x = dense_up_conv(x, ub.up_kernel, cd)
+        x = _mask(torch.relu(_cast(ub.up_bn(x, occ), act)), occ)
+        x = torch.cat([x, skip.to(x.dtype)], dim=-1)
+        for r in range(ub.block_repeat):
+            x = _dense_res_block(getattr(ub, f"dec{r}"), x, occ, cd, act)
     return x
 
 

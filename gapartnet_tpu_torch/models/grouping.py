@@ -7,7 +7,8 @@ ball query with list CCL), `proposal_cube_coords`,
 `segmented_dense_voxelize_single` (the dense grid of the eval path).  Every
 sample owns exactly 2N proposal "entries" (each valid point appears once
 per clustering set) and at most P proposals; everything downstream indexes
-through (entry_point, entry_proposal, masks).
+through (entry_point, entry_proposal, masks).  Spans (utils/profiling.py):
+`cluster:cloud` with its `cluster:compact`, and `grid:proposals` per cloud.
 """
 
 from typing import NamedTuple
@@ -19,6 +20,7 @@ from gapartnet_tpu_torch.ops.ccl import connected_components_single
 from gapartnet_tpu_torch.ops.hash_ccl import hash_connected_components
 from gapartnet_tpu_torch.ops.segment import segment_max, segment_min, segment_sum
 from gapartnet_tpu_torch.ops.voxelize import dedup_keys, div_const, pack_coords
+from gapartnet_tpu_torch.utils.profiling import span
 
 PROPOSAL_CELL = 32  # virtual cell edge per proposal (> score_fullscale 28)
 
@@ -71,67 +73,69 @@ def cluster_single(
     first-K ball query (K = max_num_points_per_query on xyz,
     max_num_points_per_query_shift on xyz + offsets) and list CCL, the
     reference's neighbour semantics; its two CCL counters are zero."""
-    dev = pt_xyz.device
-    n = pt_xyz.shape[0]
-    i32 = torch.int32
-    if impl == "hash":
-        both = torch.cat([pt_xyz, pt_xyz + offsets])
-        set_mask = torch.arange(2 * n, device=dev) >= n
-        lab, ccl_overflow, ccl_cand_truncated = hash_connected_components(
-            both,
-            torch.cat([sem_preds, sem_preds]).to(i32),
-            torch.cat([valid, valid]),
-            ball_query_radius,
-            node_capacity=2 * hash_node_capacity if hash_node_capacity else 0,
-            set_mask=set_mask,
-            cand_cap=hash_cand_cap,
-            max_degree=hash_max_degree,
+    with span("cluster:cloud"):
+        dev = pt_xyz.device
+        n = pt_xyz.shape[0]
+        i32 = torch.int32
+        if impl == "hash":
+            both = torch.cat([pt_xyz, pt_xyz + offsets])
+            set_mask = torch.arange(2 * n, device=dev) >= n
+            lab, ccl_overflow, ccl_cand_truncated = hash_connected_components(
+                both,
+                torch.cat([sem_preds, sem_preds]).to(i32),
+                torch.cat([valid, valid]),
+                ball_query_radius,
+                node_capacity=2 * hash_node_capacity if hash_node_capacity else 0,
+                set_mask=set_mask,
+                cand_cap=hash_cand_cap,
+                max_degree=hash_max_degree,
+            )
+            # components never span sets, so set-2 labels map back by -n
+            lab1, lab2 = lab[:n], lab[n:] - n
+        elif impl == "exact":
+            nbr1, _ = ball_query_single(pt_xyz, sem_preds, valid, ball_query_radius,
+                                        max_num_points_per_query)
+            lab1 = connected_components_single(nbr1, valid)
+            nbr2, _ = ball_query_single(pt_xyz + offsets, sem_preds, valid, ball_query_radius,
+                                        max_num_points_per_query_shift)
+            lab2 = connected_components_single(nbr2, valid)
+            ccl_overflow = ccl_cand_truncated = torch.zeros((), dtype=i32, device=dev)
+        else:
+            raise ValueError(f"unknown clustering impl {impl}")
+
+        with span("cluster:compact"):
+            m = 2 * n
+            dump = torch.full_like(lab1, m)
+            keys = torch.cat([torch.where(valid, lab1, dump), torch.where(valid, n + lab2, dump)])
+            sp = torch.cat([torch.arange(n, dtype=i32, device=dev)] * 2)
+            entry_valid = keys < m
+
+            sizes_raw = torch.zeros((m + 1,), dtype=i32, device=dev)
+            sizes_raw.index_add_(0, keys.long(), torch.ones_like(keys))
+            sizes_raw = sizes_raw[:m]
+            keep_raw = sizes_raw >= min_num_points_per_proposal
+            compact_of_raw = torch.cumsum(keep_raw.to(i32), 0, dtype=i32) - 1
+            kc = keys.clamp(0, m - 1).long()
+            keep_entry = entry_valid & keep_raw[kc]
+            pid = torch.where(keep_entry, compact_of_raw[kc], torch.full_like(keys, -1))
+            pid = torch.where(pid < max_proposals, pid, torch.full_like(pid, -1))
+            entry_mask = pid >= 0
+
+            num_kept = keep_raw.sum().to(i32)
+            num_proposals = torch.clamp(num_kept, max=max_proposals)
+            proposal_size = segment_sum(torch.ones((m,), dtype=i32, device=dev), pid, max_proposals, mask=entry_mask)
+            proposal_mask = torch.arange(max_proposals, device=dev) < num_proposals
+        return SampleProposals(
+            entry_point=sp,
+            entry_proposal=pid,
+            entry_mask=entry_mask,
+            proposal_size=proposal_size,
+            proposal_mask=proposal_mask,
+            num_proposals=num_proposals,
+            num_dropped=num_kept - num_proposals,
+            ccl_overflow=ccl_overflow,
+            ccl_cand_truncated=ccl_cand_truncated,
         )
-        # components never span sets, so set-2 labels map back by -n
-        lab1, lab2 = lab[:n], lab[n:] - n
-    elif impl == "exact":
-        nbr1, _ = ball_query_single(pt_xyz, sem_preds, valid, ball_query_radius,
-                                    max_num_points_per_query)
-        lab1 = connected_components_single(nbr1, valid)
-        nbr2, _ = ball_query_single(pt_xyz + offsets, sem_preds, valid, ball_query_radius,
-                                    max_num_points_per_query_shift)
-        lab2 = connected_components_single(nbr2, valid)
-        ccl_overflow = ccl_cand_truncated = torch.zeros((), dtype=i32, device=dev)
-    else:
-        raise ValueError(f"unknown clustering impl {impl}")
-
-    m = 2 * n
-    dump = torch.full_like(lab1, m)
-    keys = torch.cat([torch.where(valid, lab1, dump), torch.where(valid, n + lab2, dump)])
-    sp = torch.cat([torch.arange(n, dtype=i32, device=dev)] * 2)
-    entry_valid = keys < m
-
-    sizes_raw = torch.zeros((m + 1,), dtype=i32, device=dev)
-    sizes_raw.index_add_(0, keys.long(), torch.ones_like(keys))
-    sizes_raw = sizes_raw[:m]
-    keep_raw = sizes_raw >= min_num_points_per_proposal
-    compact_of_raw = torch.cumsum(keep_raw.to(i32), 0, dtype=i32) - 1
-    kc = keys.clamp(0, m - 1).long()
-    keep_entry = entry_valid & keep_raw[kc]
-    pid = torch.where(keep_entry, compact_of_raw[kc], torch.full_like(keys, -1))
-    pid = torch.where(pid < max_proposals, pid, torch.full_like(pid, -1))
-    entry_mask = pid >= 0
-
-    num_kept = keep_raw.sum().to(i32)
-    num_proposals = torch.clamp(num_kept, max=max_proposals)
-    proposal_size = segment_sum(torch.ones((m,), dtype=i32, device=dev), pid, max_proposals, mask=entry_mask)
-    proposal_mask = torch.arange(max_proposals, device=dev) < num_proposals
-    return SampleProposals(
-        entry_point=sp,
-        entry_proposal=pid,
-        entry_mask=entry_mask,
-        proposal_size=proposal_size,
-        proposal_mask=proposal_mask,
-        num_proposals=num_proposals,
-        num_dropped=num_kept - num_proposals,
-        ccl_overflow=ccl_overflow,
-        ccl_cand_truncated=ccl_cand_truncated,
-    )
 
 
 def proposal_cube_coords(
@@ -202,14 +206,15 @@ def segmented_voxelize_single(
     """Normalize each proposal into the fullscale cube and voxelize (unit
     voxels) into the PROPOSAL_CELL key space: proposal p owns the 32^3 cell
     at (p % 32, (p // 32) % 32, p // 1024) of a super-grid."""
-    coords, pidc, mask = proposal_cube_coords(
-        pt_xyz, prop, rand_a, rand_b, max_proposals, score_fullscale, score_scale
-    )
-    c = PROPOSAL_CELL
-    cell = torch.stack([pidc % c, (pidc // c) % c, pidc // (c * c)], dim=-1)
-    keys = pack_coords(cell * c + coords)
-    unique_keys, entry_voxel_id, num_voxels = dedup_keys(keys, mask)
-    return ProposalGrid(keys=unique_keys, num_voxels=num_voxels, entry_voxel_id=entry_voxel_id)
+    with span("grid:proposals"):
+        coords, pidc, mask = proposal_cube_coords(
+            pt_xyz, prop, rand_a, rand_b, max_proposals, score_fullscale, score_scale
+        )
+        c = PROPOSAL_CELL
+        cell = torch.stack([pidc % c, (pidc // c) % c, pidc // (c * c)], dim=-1)
+        keys = pack_coords(cell * c + coords)
+        unique_keys, entry_voxel_id, num_voxels = dedup_keys(keys, mask)
+        return ProposalGrid(keys=unique_keys, num_voxels=num_voxels, entry_voxel_id=entry_voxel_id)
 
 
 def segmented_dense_voxelize_single(
@@ -224,8 +229,9 @@ def segmented_dense_voxelize_single(
     """Per-entry linear site index into the dense (P, S, S, S) proposal grid:
     ((pid*S + x)*S + y)*S + z, or -1 for invalid entries."""
     s = int(score_fullscale)
-    coords, pidc, mask = proposal_cube_coords(
-        pt_xyz, prop, rand_a, rand_b, max_proposals, score_fullscale, score_scale
-    )
-    lin = ((pidc * s + coords[:, 0]) * s + coords[:, 1]) * s + coords[:, 2]
-    return torch.where(mask, lin, torch.full_like(lin, -1))
+    with span("grid:proposals"):
+        coords, pidc, mask = proposal_cube_coords(
+            pt_xyz, prop, rand_a, rand_b, max_proposals, score_fullscale, score_scale
+        )
+        lin = ((pidc * s + coords[:, 0]) * s + coords[:, 1]) * s + coords[:, 2]
+        return torch.where(mask, lin, torch.full_like(lin, -1))

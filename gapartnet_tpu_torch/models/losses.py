@@ -22,10 +22,12 @@ import torch.nn.functional as F
 from gapartnet_tpu_torch.constants import SYMMETRY_ORBITS
 from gapartnet_tpu_torch.parallel.dist import all_reduce_
 from gapartnet_tpu_torch.ops.segment import segment_count, segment_sum
+from gapartnet_tpu_torch.utils.profiling import span
 
 
 def _const(x: torch.Tensor, value: float) -> torch.Tensor:
-    return torch.tensor(value, dtype=x.dtype, device=x.device)
+    with span("sync:loss_constant"):    # the copy to the device waits for it
+        return torch.tensor(value, dtype=x.dtype, device=x.device)
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +137,8 @@ def npcs_loss(npcs_preds, gt_npcs, sym_types, proposal_ids, entry_mask, num_prop
     Orbits are padded with their column 0, so padded columns tie with it and
     share its gradient, as under `jnp.min`.
     """
-    orbits = torch.as_tensor(SYMMETRY_ORBITS, device=npcs_preds.device)   # (5, M, 3, 3)
+    with span("sync:npcs_orbits"):
+        orbits = torch.as_tensor(SYMMETRY_ORBITS, device=npcs_preds.device)   # (5, M, 3, 3)
     morb = orbits.shape[1]
     q = npcs_preds - 0.5
     # |q - gt R|^2 = |q|^2 + |gt|^2 - 2 (gt (x) q) . vec(R), R orthogonal

@@ -19,11 +19,13 @@ import torch
 from torch import nn
 
 from gapartnet_tpu_torch.models.norm import MaskedBatchNorm
+from gapartnet_tpu_torch.utils.profiling import span
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(B, N, C) -> (B, C), the maximum over the points where `mask`."""
-    low = torch.tensor(torch.finfo(x.dtype).min, dtype=x.dtype, device=x.device)
+    with span("sync:pointnet_low"):     # the copy to the device waits for it
+        low = torch.tensor(torch.finfo(x.dtype).min, dtype=x.dtype, device=x.device)
     return torch.where(mask[..., None], x, low).amax(dim=1)
 
 

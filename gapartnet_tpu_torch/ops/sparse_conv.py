@@ -26,6 +26,7 @@ from gapartnet_tpu_torch.ops.voxelize import (
     pack_coords,
     unpack_key,
 )
+from gapartnet_tpu_torch.utils.profiling import span
 
 
 def kernel_offsets(kernel_size: int) -> List[tuple]:
@@ -58,11 +59,13 @@ def build_subm_rulebook(
     dev = keys.device
     coords = unpack_key(keys)                                   # (B, V, 3)
     valid = keys != KEY_SENTINEL
-    offs = torch.tensor(kernel_offsets(3), dtype=torch.int32, device=dev)
+    with span("sync:rulebook_constant"):
+        offs = torch.tensor(kernel_offsets(3), dtype=torch.int32, device=dev)
     tgt = coords[:, None, :, :] + offs[None, :, None, :]        # (B, 27, V, 3)
     ok = ((tgt >= 0) & (tgt < COORD_MAX)).all(dim=-1) & valid[:, None, :]
     if extent is not None:
-        ext = torch.tensor(tuple(extent), dtype=torch.int32, device=dev)
+        with span("sync:rulebook_constant"):
+            ext = torch.tensor(tuple(extent), dtype=torch.int32, device=dev)
         ok = ok & (tgt < ext).all(dim=-1)
     tgt_key = torch.where(ok, pack_coords(tgt), torch.full_like(tgt[..., 0], KEY_SENTINEL - 1))
     idx = torch.searchsorted(keys, tgt_key.reshape(b, -1)).clamp_(0, v - 1)
@@ -195,12 +198,13 @@ def build_hierarchy(
     cur_keys, cur_nv = keys, num_voxels
     cur_extent = tuple(extent) if extent is not None else None
     for li, cap in enumerate(capacities):
-        nbr = build_subm_rulebook(cur_keys, extent=cur_extent)
-        levels.append(GridLevel(keys=cur_keys, num_voxels=cur_nv, subm_nbr=nbr))
-        if li + 1 < len(capacities):
-            ds = build_downsample(cur_keys, capacities[li + 1])
-            downsamples.append(ds)
-            cur_keys, cur_nv = ds.out_keys, ds.out_num_voxels
-            if cur_extent is not None:
-                cur_extent = tuple(-(-x // 2) for x in cur_extent)
+        with span("grid:level"):
+            nbr = build_subm_rulebook(cur_keys, extent=cur_extent)
+            levels.append(GridLevel(keys=cur_keys, num_voxels=cur_nv, subm_nbr=nbr))
+            if li + 1 < len(capacities):
+                ds = build_downsample(cur_keys, capacities[li + 1])
+                downsamples.append(ds)
+                cur_keys, cur_nv = ds.out_keys, ds.out_num_voxels
+                if cur_extent is not None:
+                    cur_extent = tuple(-(-x // 2) for x in cur_extent)
     return GridHierarchy(levels=tuple(levels), downsamples=tuple(downsamples))

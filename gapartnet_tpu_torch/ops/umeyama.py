@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from gapartnet_tpu_torch.utils.profiling import span
+
 # the 8 corners of the unit box, in the JAX package's order
 BOX_SIGNS = (
     (-1, -1, -1), (1, -1, -1), (-1, 1, -1), (-1, -1, 1),
@@ -38,7 +40,8 @@ def umeyama_masked(source: torch.Tensor, target: torch.Tensor, mask: torch.Tenso
     cs = (source - sc[..., None, :]) * w
     ct = (target - tc[..., None, :]) * w
     cov = ct.transpose(-1, -2) @ cs / cnt[..., None]
-    U, D, Vh = torch.linalg.svd(cov, full_matrices=True)
+    with span("sync:svd"):              # the solver's status is read on the host
+        U, D, Vh = torch.linalg.svd(cov, full_matrices=True)
     neg = (torch.linalg.det(U) * torch.linalg.det(Vh)) < 0.0
     flip = torch.ones_like(D)
     flip[..., -1] = -1.0
@@ -154,10 +157,12 @@ def ransac_pose_from_npcs(
 
     # refit on the inliers, then the box from their extents in NPCS
     scale, rotation, translation = umeyama_masked(npcs, xyz, inliers)
-    rot_inv = torch.linalg.pinv(rotation)
+    with span("sync:svd"):
+        rot_inv = torch.linalg.pinv(rotation)
     trans_seg = ((xyz - translation[..., None, :]) @ rot_inv) / torch.clamp(scale, min=1e-12)[..., None, None]
     ext = torch.where(inliers[..., None], trans_seg.abs(), 0.0).amax(dim=-2)    # (..., 3)
-    signs = torch.tensor(BOX_SIGNS, dtype=torch.float32, device=xyz.device)
+    with span("sync:box_signs"):
+        signs = torch.tensor(BOX_SIGNS, dtype=torch.float32, device=xyz.device)
     bbox = ((signs * ext[..., None, :]) * scale[..., None, None]) @ rotation + translation[..., None, :]
     return PoseFit(bbox=bbox, scale=scale, rotation=rotation, translation=translation,
                    inlier_mask=inliers, ok=ok)

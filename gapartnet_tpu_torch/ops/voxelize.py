@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from gapartnet_tpu_torch.ops.segment import segment_mean
+from gapartnet_tpu_torch.utils.profiling import span
 
 COORD_BITS = 10
 COORD_MAX = 1 << COORD_BITS  # 1024 per axis
@@ -30,7 +31,9 @@ def div_const(x: torch.Tensor, c) -> torch.Tensor:
     and the card's agree with the CPU's.
     """
     inv = np.float32(1.0) / np.asarray(c, np.float32)
-    return x * torch.as_tensor(inv, dtype=x.dtype, device=x.device)
+    with span("sync:div_constant"):     # the copy to the device waits for it
+        inv = torch.as_tensor(inv, dtype=x.dtype, device=x.device)
+    return x * inv
 
 
 def pack_coords(coords: torch.Tensor) -> torch.Tensor:

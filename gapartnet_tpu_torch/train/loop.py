@@ -29,6 +29,7 @@ from torch import nn
 from gapartnet_tpu_torch.models.gapartnet import GAPartNet, ModelOutput
 from gapartnet_tpu_torch.parallel.dist import sum_gradients
 from gapartnet_tpu_torch.structures import PointCloudBatch
+from gapartnet_tpu_torch.utils.profiling import span
 
 
 def stage_flags(epoch: int, training_schedule: Tuple[int, int]) -> Dict[str, bool]:
@@ -115,28 +116,42 @@ def train_step(
     The jitter is drawn from `generator` every step (`draw_jitter`).  The
     parameters of the `freeze_prefixes` modules get no gradient
     (requires_grad is set here, every step), and their running statistics
-    are put back after the forward."""
-    model.train()
-    jitter = draw_jitter(generator)
-    for name, p in model.named_parameters():
-        p.requires_grad_(top_module(name) not in freeze_prefixes)
-    pinned = [(buf, buf.clone()) for name, mod in model.named_children()
-              if name in freeze_prefixes for buf in mod.buffers()]
-    optimizer.zero_grad(set_to_none=True)
-    out = model(
-        batch, do_cluster=do_cluster, do_score=do_score, do_npcs=do_npcs,
-        cluster_sem_override=cluster_sem_override,
-        cluster_offset_override=cluster_offset_override, jitter=jitter,
-        frozen_bn=tuple(freeze_prefixes),
-    )
-    if out.total_loss.requires_grad:
-        out.total_loss.backward()
-    sum_gradients(p for group in optimizer.param_groups for p in group["params"])
-    optimizer_step(optimizer)
-    with torch.no_grad():
-        for buf, value in pinned:
-            buf.copy_(value)
-    return loss_metrics(out)
+    are put back after the forward.
+
+    Spans (utils/profiling.py): `step`, and in it `step:prepare` (modes,
+    flags, the jitter draw, zeroed gradients), `step:forward`,
+    `step:backward`, `step:optimizer` (the missing-gradient fill, the sum
+    over the ranks and Adam) and `step:metrics` (restored statistics, the
+    metrics, the step's tensors freed)."""
+    with span("step"):
+        with span("step:prepare"):
+            model.train()
+            jitter = draw_jitter(generator)
+            for name, p in model.named_parameters():
+                p.requires_grad_(top_module(name) not in freeze_prefixes)
+            pinned = [(buf, buf.clone()) for name, mod in model.named_children()
+                      if name in freeze_prefixes for buf in mod.buffers()]
+            optimizer.zero_grad(set_to_none=True)
+        with span("step:forward"):
+            out = model(
+                batch, do_cluster=do_cluster, do_score=do_score, do_npcs=do_npcs,
+                cluster_sem_override=cluster_sem_override,
+                cluster_offset_override=cluster_offset_override, jitter=jitter,
+                frozen_bn=tuple(freeze_prefixes),
+            )
+        with span("step:backward"):
+            if out.total_loss.requires_grad:
+                out.total_loss.backward()
+        with span("step:optimizer"):
+            sum_gradients(p for group in optimizer.param_groups for p in group["params"])
+            optimizer_step(optimizer)
+        with span("step:metrics"):
+            with torch.no_grad():
+                for buf, value in pinned:
+                    buf.copy_(value)
+            metrics = loss_metrics(out)
+            del out    # the step's tensors are freed here, inside its span
+        return metrics
 
 
 def eval_step(model: GAPartNet, batch: PointCloudBatch, do_cluster: bool, do_score: bool,

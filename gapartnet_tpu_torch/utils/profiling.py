@@ -1,10 +1,31 @@
 """Profiling and step-timing hooks (the port's counterpart of
-utils/profiling.py).
+utils/profiling.py), and the program's own spans and counters.
 
 A step timer with EMA summaries, a context manager around torch.profiler
 tracing that writes a Chrome trace, and a device-memory snapshot.  Unlike
 the JAX module's `maybe_trace`, an exception from the traced body
 propagates, and a profiler that cannot write its trace raises.
+
+The program marks its layers with `span(name)` (a train step's forward,
+backward and optimizer, the model's stages, a request's four stages, every
+call that makes the host wait for the device, named `sync:<site>`) and
+counts work with `count(name, value)`.  With nothing on, a span is one
+shared no-op object and a count does nothing.  Under a torch.profiler (so
+also under `maybe_trace`) every span is a `record_function` range as well:
+the Chrome trace and the profiler's events carry the program's spans beside
+the kernels.  To read them without a profiler, turn the recorder on around
+your own calls:
+
+    with profiling.record() as rec:
+        infer.predict_with_masks(points, masks)
+        torch.cuda.synchronize()
+    rec.summary()["request:scatter"]   # {"n": 1, "ms": ..., "self_ms": ...}
+    rec.counts["dense_grids_live"]
+
+Spans are host times (`time.perf_counter_ns`), kept in memory.  A count
+given as a device tensor is summed when the block ends, after the caller's
+synchronize, so no count makes the host wait.  The recorder serves one
+thread at a time (a backward's worker thread runs while its caller waits).
 """
 
 import contextlib
@@ -13,7 +34,7 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -92,3 +113,124 @@ def dump_timings(path: str, timer: StepTimer, extra: Optional[dict] = None):
     p.parent.mkdir(parents=True, exist_ok=True)
     with open(p, "a") as f:
         f.write(json.dumps(rec) + "\n")
+
+
+class Span(NamedTuple):
+    name: str
+    parent: int     # index of the enclosing span in Recording.spans, -1 at a root
+    t0_ns: int      # time.perf_counter_ns() at entry
+    t1_ns: int      # and at exit
+
+
+class Recording:
+    """What one `record()` block saw: `spans` in the order they were
+    entered, `counts` by name.  Both are complete when the block ends."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.counts: Dict[str, int] = {}
+        self._rows: List[list] = []        # [name, parent, t0, t1] while open
+        self._stack: List[int] = []
+        self._tensors: Dict[str, List[torch.Tensor]] = {}
+
+    def _enter(self, name: str) -> int:
+        i = len(self._rows)
+        self._rows.append([name, self._stack[-1] if self._stack else -1,
+                           time.perf_counter_ns(), None])
+        self._stack.append(i)
+        return i
+
+    def _exit(self, i: int) -> None:
+        self._rows[i][3] = time.perf_counter_ns()
+        self._stack.pop()
+
+    def _count(self, name: str, value: Union[int, torch.Tensor]) -> None:
+        if isinstance(value, torch.Tensor):
+            self._tensors.setdefault(name, []).append(value)
+        else:
+            self.counts[name] = self.counts.get(name, 0) + int(value)
+
+    def _close(self) -> None:
+        """Spans still open end now; tensor counts are summed (one read
+        each, after the caller's synchronize)."""
+        end = time.perf_counter_ns()
+        self.spans = [Span(n, p, t0, end if t1 is None else t1) for n, p, t0, t1 in self._rows]
+        for name, ts in self._tensors.items():
+            self.counts[name] = self.counts.get(name, 0) + sum(int(t.sum()) for t in ts)
+        self._tensors = {}
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per span name: `n` spans, their inclusive time `ms` and their
+        `self_ms`, each span's time less the part its child spans cover."""
+        covered = [0] * len(self.spans)
+        for s in self.spans:
+            if s.parent >= 0:
+                covered[s.parent] += s.t1_ns - s.t0_ns
+        out: Dict[str, Dict[str, float]] = {}
+        for s, c in zip(self.spans, covered):
+            d = out.setdefault(s.name, {"n": 0, "ms": 0.0, "self_ms": 0.0})
+            d["n"] += 1
+            d["ms"] += (s.t1_ns - s.t0_ns) / 1e6
+            d["self_ms"] += (s.t1_ns - s.t0_ns - c) / 1e6
+        return out
+
+
+_recording: Optional[Recording] = None
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "rf", "rec", "i")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if _profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.rec = _recording
+        if self.rec is not None:
+            self.i = self.rec._enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.rec is not None:
+            self.rec._exit(self.i)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one layer's work: recorded while `record()`
+    is on, a `record_function` range while a torch.profiler runs, else the
+    shared no-op."""
+    if _recording is None and not _profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, value: Union[int, torch.Tensor]) -> None:
+    """Add `value` (an int, or a tensor whose sum counts; keep it unchanged
+    until the recording ends) to the counter `name` while `record()` is on."""
+    if _recording is not None:
+        _recording._count(name, value)
+
+
+@contextlib.contextmanager
+def record():
+    """Turn the recorder on for the block and yield its `Recording`.  End
+    the block with a synchronize where the spans are to hold the device's
+    work.  One recording at a time."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("profiling.record: a recording is already on")
+    rec = _recording = Recording()
+    try:
+        yield rec
+    finally:
+        _recording = None
+    rec._close()

@@ -83,3 +83,223 @@ def test_dump_timings_equal(tmp_path):
         t.times = {"step": 0.12345, "load": 0.5}
         mod.dump_timings(str(tmp_path / name / "t.jsonl"), t, {"epoch": 3})
     assert (tmp_path / "port" / "t.jsonl").read_text() == (tmp_path / "jax" / "t.jsonl").read_text()
+
+
+# the program's spans and counters (span, count, record)
+
+SMALL = dict(
+    channels=(8, 16, 24), block_repeat=2, max_points=512, max_proposals=32,
+    max_instances=8, level_capacity_divisors=(1, 2, 4),
+    min_num_points_per_proposal=3, ball_query_radius=0.1,
+    max_num_points_per_query=16, max_num_points_per_query_shift=32,
+)
+
+
+def _names(rec):
+    return [s.name for s in rec.spans]
+
+
+def _children(rec, i):
+    return [s.name for s in rec.spans if s.parent == i]
+
+
+def _ancestors(rec, s):
+    out = []
+    while s.parent >= 0:
+        s = rec.spans[s.parent]
+        out.append(s.name)
+    return out
+
+
+def test_span_off_is_the_shared_noop(monkeypatch):
+    """With neither the recorder nor a profiler on, every span is one
+    shared no-op, no record_function is entered and counts go nowhere."""
+    def no_range(name):
+        raise AssertionError(f"record_function({name!r}) entered with everything off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", no_range)
+    assert tprof.span("a") is tprof.span("b")
+    with tprof.span("a"):
+        tprof.count("c", torch.ones(3))
+        tprof.count("c", 2)
+    assert tprof._recording is None
+    with tprof.record() as rec:
+        pass
+    assert rec.spans == [] and rec.counts == {}
+
+
+def test_spans_nest_with_parents():
+    with tprof.record() as rec:
+        with tprof.span("root"):
+            with tprof.span("a"):
+                with tprof.span("a1"):
+                    pass
+            with tprof.span("b"):
+                pass
+        with tprof.span("root"):
+            pass
+    assert _names(rec) == ["root", "a", "a1", "b", "root"]
+    assert [s.parent for s in rec.spans] == [-1, 0, 1, 0, -1]
+    for s in rec.spans:
+        assert s.t0_ns <= s.t1_ns
+        if s.parent >= 0:
+            p = rec.spans[s.parent]
+            assert p.t0_ns <= s.t0_ns and s.t1_ns <= p.t1_ns
+    assert tprof._recording is None
+
+
+def test_self_time_on_a_hand_built_record():
+    """Self time: a span's duration less what its child spans cover; the
+    sums are per name."""
+    rec = tprof.Recording()
+    ms = 1_000_000
+    rec.spans = [tprof.Span("request", -1, 0, 100 * ms),
+                 tprof.Span("request:forward", 0, 0, 60 * ms),
+                 tprof.Span("request:scatter", 0, 60 * ms, 90 * ms),
+                 tprof.Span("sync:outputs", 2, 60 * ms, 70 * ms),
+                 tprof.Span("sync:outputs", 2, 80 * ms, 85 * ms),
+                 tprof.Span("request", -1, 200 * ms, 210 * ms)]
+    got = rec.summary()
+    assert got["request"] == {"n": 2, "ms": 110.0, "self_ms": 20.0}
+    assert got["request:forward"] == {"n": 1, "ms": 60.0, "self_ms": 60.0}
+    assert got["request:scatter"] == {"n": 1, "ms": 30.0, "self_ms": 15.0}
+    assert got["sync:outputs"] == {"n": 2, "ms": 15.0, "self_ms": 15.0}
+
+
+def test_tensor_counts_are_summed_when_the_recording_ends():
+    """A tensor count is kept as it is and read once, when the block ends:
+    a change made to it before then shows in the count."""
+    live = torch.tensor([True, False, True, False])
+    with tprof.record() as rec:
+        tprof.count("live", live)
+        tprof.count("grids", 4)
+        tprof.count("grids", 4)
+        assert "live" not in rec.counts
+        live[1] = True
+    assert rec.counts == {"live": 3, "grids": 8}
+
+
+def test_record_is_off_after_an_error_and_not_reentrant():
+    with pytest.raises(RuntimeError, match="already on"):
+        with tprof.record():
+            with tprof.record():
+                pass
+    assert tprof._recording is None
+    with pytest.raises(KeyError):
+        with tprof.record():
+            with tprof.span("a"):
+                raise KeyError("inside")
+    assert tprof._recording is None
+    assert tprof.span("a") is tprof._OFF
+
+
+def test_span_is_a_profiler_range():
+    """Under a CPU torch.profiler a span is a record_function range among
+    the kineto events, also with the recorder off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tprof.span("model:test_span"):
+            torch.ones(4).sum()
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "model:test_span" in names
+
+
+def test_maybe_trace_carries_program_spans(tmp_path):
+    with tprof.maybe_trace(str(tmp_path / "trace")):
+        with tprof.span("step:forward"):
+            torch.randn(8, 8) @ torch.randn(8, 8)
+    (f,) = (tmp_path / "trace").glob("trace-*.json")
+    events = json.loads(f.read_text())["traceEvents"]
+    assert any(e.get("name") == "step:forward" for e in events)
+
+
+@pytest.fixture(scope="module")
+def small_cloud():
+    import numpy as np
+
+    from gapartnet_tpu_torch.data.synthetic import synthetic_cloud
+
+    return synthetic_cloud(np.random.RandomState(2), num_points=SMALL["max_points"], num_parts=4)
+
+
+def test_predict_with_masks_spans_and_dense_counts(small_cloud):
+    """A request is one `request` span with its four stages as children,
+    the output copies under the scatter; the dense UNets count their live
+    and convolved grids."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.infer.api import GAPartNetInference
+
+    cfg = GAPartNetConfig(**SMALL)
+    inf = GAPartNetInference(cfg, seed=0, auto_capacity=True, device="cpu")
+    c = small_cloud
+    masks = np.stack([c["instance_labels"] == k for k in range(3)])
+    with tprof.record() as rec:
+        inf.predict_with_masks(c["points"], masks)
+    names = _names(rec)
+    assert names.count("request") == 1
+    root = names.index("request")
+    assert rec.spans[root].parent == -1
+    assert [n for n in _children(rec, root) if n.startswith("request:")] == [
+        "request:forward", "request:select", "request:scatter", "request:ransac"]
+    outputs = [s for s in rec.spans if s.name == "sync:outputs"]
+    assert len(outputs) == 8     # one per output copied to the host
+    assert {rec.spans[s.parent].name for s in outputs} == {"request:scatter"}
+    for stage in ("model:backbone", "model:heads", "model:proposal_grids", "model:score",
+                  "model:npcs"):
+        (s,) = [s for s in rec.spans if s.name == stage]
+        assert rec.spans[s.parent].name == "request:forward"
+    assert rec.counts == {"dense_grids_live": 3,
+                          "dense_grids_convolved": min(cfg.dense_grid_capacity, cfg.max_proposals)}
+
+
+def test_train_step_spans_and_ccl_syncs(monkeypatch):
+    """A train step is one `step` span with its forward, backward and
+    optimizer; clustering runs in the forward, and it has one
+    `ccl:iteration` with its `sync:ccl_converged` span per convergence
+    test of the hash CCL, counted here by wrapping torch.equal."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.data.synthetic import synthetic_batch
+    from gapartnet_tpu_torch.models.gapartnet import GAPartNet
+    from gapartnet_tpu_torch.structures import PointCloudBatch
+    from gapartnet_tpu_torch.train import loop
+    from gapartnet_tpu_torch.weights import init_weights
+
+    cfg = GAPartNetConfig(**SMALL)
+    model = init_weights(GAPartNet(cfg), torch.Generator().manual_seed(0))
+    opt = loop.adam(model.named_parameters())
+    d = synthetic_batch(np.random.RandomState(0), batch_size=2, num_points=SMALL["max_points"],
+                        num_parts=4, max_instances=SMALL["max_instances"])
+    batch = PointCloudBatch.from_numpy(d, "cpu")
+    inst = batch.instance_labels
+    off = torch.where((inst >= 0)[..., None],
+                      batch.instance_regions[..., :3] - batch.points[..., :3], torch.zeros(()))
+    tests = []
+    equal = torch.equal
+
+    def counted(a, b):
+        tests.append(1)
+        return equal(a, b)
+
+    monkeypatch.setattr(torch, "equal", counted)
+    with tprof.record() as rec:
+        loop.train_step(model, opt, batch, torch.Generator().manual_seed(1), True, True, True,
+                        cluster_sem_override=batch.sem_labels, cluster_offset_override=off)
+    names = _names(rec)
+    assert names[0] == "step" and names.count("step") == 1
+    assert _children(rec, 0) == ["step:prepare", "step:forward", "step:backward",
+                                 "step:optimizer", "step:metrics"]
+    fwd = names.index("step:forward")
+    assert [n for n in _children(rec, fwd)] == [
+        "model:grid", "model:backbone", "model:heads", "model:cluster", "model:proposal_grids",
+        "model:score", "model:npcs"]
+    syncs = [s for s in rec.spans if s.name == "sync:ccl_converged"]
+    assert len(tests) > 0 and len(syncs) == len(tests)
+    assert {rec.spans[s.parent].name for s in syncs} == {"ccl:iteration"}
+    assert names.count("ccl:iteration") == len(syncs)
+    assert all("model:cluster" in _ancestors(rec, s) for s in syncs)
+    assert "dense_grids_live" not in rec.counts   # training runs the sparse UNets
