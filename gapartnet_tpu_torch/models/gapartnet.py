@@ -48,8 +48,10 @@ and offset heads and their losses), `model:cluster` (per cloud, then
 `cluster:stack`), `model:proposal_grids` (cube placement, the proposal
 grids, `proposals:features`, `proposals:rep_points`, `proposals:ious`),
 `model:score` and `model:npcs` (each a UNet, then `score:head` /
-`npcs:head`); in the dense branch the counters `dense_grids_live` (live
-proposals) and `dense_grids_convolved` (the grids the dense UNets convolve).
+`npcs:head`); in the dense branch `sync:dense_live` (the host reads the
+live proposal count, which sizes the grid pool) and the counters
+`dense_grids_live` (live proposals) and `dense_grids_convolved` (the grids
+the dense UNets convolve).
 
 Module and parameter names follow the flax tree (weights.params_from_jax
 maps one onto the other).
@@ -375,10 +377,15 @@ class GAPartNet(nn.Module):
                 ])
                 entry_ok = prop.entry_mask & (entry_cell >= 0)
                 s3 = s * s * s
-                # live-grid compaction into a shared (B * dense_grid_capacity, S^3)
-                # space, so the UNets convolve no dead grids
-                gcap = b * min(cfg.dense_grid_capacity, p_cap)
+                # live-grid compaction into a shared pool of `gcap` (G, S^3) grids,
+                # so the UNets convolve no dead grids: the live count rounded up to
+                # a power of two (few distinct cuDNN shapes), at most the capacity
+                # B * dense_grid_capacity, beyond which live proposals are dropped
                 live = prop.proposal_mask.reshape(-1)
+                with span("sync:dense_live"):
+                    n_live = int(live.sum())
+                gcap = min(1 << max(n_live - 1, 0).bit_length(),
+                           b * min(cfg.dense_grid_capacity, p_cap))
                 count("dense_grids_live", live)
                 count("dense_grids_convolved", gcap)
                 g_of = torch.cumsum(live.to(i32), 0, dtype=i32) - 1

@@ -214,6 +214,77 @@ def test_flagship_bench_cloud_matches():
                                    rtol=TOL, atol=TOL, err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def jax_with_proposals():
+    """The JAX eval forward under a proposals override, jitted once per
+    dense_grid_capacity."""
+    fns = {}
+
+    def run(variables, jbatch, props, capacity):
+        if capacity not in fns:
+            jm = JaxModel(JaxConfig(**SMALL, dense_grid_capacity=capacity))
+            fns[capacity] = jax.jit(lambda v, b, pr: jm.apply(
+                v, b, train=False, do_cluster=True, do_score=True, do_npcs=True,
+                proposals_override=pr))
+        return fns[capacity](variables, jbatch, props)
+
+    return run
+
+
+@pytest.mark.parametrize("per_cloud,capacity,pool", [
+    ((0, 0), 96, 1), ((1, 0), 96, 1), ((2, 1), 96, 4), ((2, 2), 96, 4), ((3, 2), 96, 8),
+    ((3, 3), 2, 4),     # 6 live proposals over a capacity of 2 x 2 grids: 2 dropped
+])
+def test_dense_pool_sized_by_live_proposals(setup, jax_with_proposals, per_cloud, capacity, pool):
+    """The dense UNets convolve the live proposal count rounded up to a
+    power of two (at least 1, at most B * dense_grid_capacity); outputs and
+    counters are the JAX model's, whose pool is the capacity.  Proposals
+    are the first instances of each cloud, laid out by the inference API."""
+    from types import SimpleNamespace
+
+    from gapartnet_tpu.models.grouping import SampleProposals as JaxProposals
+    from gapartnet_tpu_torch.infer.api import GAPartNetInference
+    from gapartnet_tpu_torch.models.grouping import SampleProposals
+    from gapartnet_tpu_torch.utils import profiling
+
+    jm, variables, jbatch, _, tbatch, _, _ = setup
+    cfg = GAPartNetConfig(**SMALL, dense_grid_capacity=capacity)
+    inst = synthetic_batch(np.random.RandomState(0), batch_size=2, num_points=512,
+                           num_parts=4, max_instances=8)["instance_labels"]
+    n = inst.shape[1]
+    api = SimpleNamespace(cfg=cfg, device=torch.device("cpu"))
+    per = [GAPartNetInference._mask_proposals(
+        api, np.array([inst[i] == k for k in range(m)], bool).reshape(m, n), n)
+        for i, m in enumerate(per_cloud)]
+    prop = SampleProposals(*[torch.cat(f) for f in zip(*per)])
+    jo = jax_with_proposals(variables, jbatch,
+                            JaxProposals(*[jnp.asarray(t.numpy()) for t in prop]), capacity)
+    tm = GAPartNet(cfg)
+    tm.load_state_dict(params_from_jax(variables), strict=True)
+    tm.eval()
+    with torch.no_grad(), profiling.record() as rec:
+        to = tm(tbatch, do_cluster=True, do_score=True, do_npcs=True, proposals_override=prop)
+
+    live = sum(per_cloud)
+    assert rec.counts == {"dense_grids_live": live, "dense_grids_convolved": pool}
+    assert [s.name for s in rec.spans].count("sync:dense_live") == 1
+    assert set(to.counters) == set(jo.counters)
+    for k, v in jo.counters.items():
+        np.testing.assert_array_equal(to.counters[k].numpy(), np.asarray(v), err_msg=k)
+    assert int(to.counters["dense_grids_dropped"].sum()) == max(live - pool, 0)
+    assert int(to.entry_site.max()) < pool * int(cfg.score_fullscale) ** 3
+    for name in ("score_logits", "npcs_preds"):
+        np.testing.assert_allclose(getattr(to, name).numpy(), np.asarray(getattr(jo, name)),
+                                   rtol=TOL, atol=TOL, err_msg=name)
+    if live == 0:
+        # one empty grid: every pooled feature is masked to zero
+        assert (to.entry_site.numpy() == -1).all()
+        with torch.no_grad():
+            head0 = tm.score_head(torch.zeros(tm.score_head.in_features))
+        np.testing.assert_array_equal(to.score_logits.numpy(),
+                                      head0[(to.proposal_sem - 1).long()].numpy())
+
+
 def test_sparse_proposal_path_matches_in_eval(setup):
     """proposal_conv_impl="sparse" at eval: the proposal UNets run sparse
     through the submanifold convs over the proposal voxels (cube centre

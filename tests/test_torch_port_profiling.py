@@ -251,8 +251,10 @@ def test_predict_with_masks_spans_and_dense_counts(small_cloud):
                   "model:npcs"):
         (s,) = [s for s in rec.spans if s.name == stage]
         assert rec.spans[s.parent].name == "request:forward"
-    assert rec.counts == {"dense_grids_live": 3,
-                          "dense_grids_convolved": min(cfg.dense_grid_capacity, cfg.max_proposals)}
+    (live,) = [s for s in rec.spans if s.name == "sync:dense_live"]
+    assert rec.spans[live.parent].name == "model:proposal_grids"
+    # the pool holds the 3 live grids rounded up to a power of two
+    assert rec.counts == {"dense_grids_live": 3, "dense_grids_convolved": 4}
 
 
 def test_train_step_spans_and_ccl_syncs(monkeypatch):
