@@ -168,11 +168,14 @@ def result_line(run: Run, out: Outcome, device_kind: str) -> Dict[str, Any]:
         device.update(busy_s=out.trace.busy_s, window_s=out.trace.window_s)
         res["breakdown"] = {"device_ops": out.trace.top_device_ops(10),
                             "idle_gaps": out.trace.idle_by_host[:10]}
-        # the two stretches' wall times: their ratio per unit is the profiler's cost
+        # the stretches' wall times: their ratios per unit to the first are
+        # the profiler's cost and the recorder's
         out.notes["stretches"] = {"unprofiled_s": out.trace.untraced_s,
                                   "unprofiled_units": out.trace.untraced_units,
                                   "profiled_s": out.trace.window_s,
-                                  "profiled_units": out.trace.units}
+                                  "profiled_units": out.trace.units,
+                                  "recorded_s": out.trace.program_s,
+                                  "recorded_units": out.trace.program_units}
     else:
         units = {m["name"]: m["unit"] for m in run.end_to_end}
         res["metrics"] = {k: {"value": v, "unit": units[k]} for k, v in out.metrics.items()

@@ -1,23 +1,20 @@
-"""The program's own spans and counters in a cell, and the per-unit values
-that span metrics take from them; not run by the benchmark.
+"""The program's own spans and counters in a cell, the span metrics per
+unit, the recorder's cost and the sync inventory; not run by the benchmark.
 
-    python3 portbench/spans.py --workload <cell> --seeds 1,2,3 [--inventory 1]
+    python3 portbench/spans.py --workload <cell> --seeds 1,2,3 [--inventory 1] [--turns N]
 
 The program records spans and counts (gapartnet_tpu_torch/utils/profiling.py:
-`span`, `count`, `record`).  Under the profiler of a `--trace 1` run its
-spans are `record_function` ranges, so `breakdown.idle_gaps` names them;
-their host times need a stretch with the recorder on and no profiler, which
-`tracing.traced_stretch` does not run (PERF.md, Open questions).  This
-script runs each seed's traced run in this process with that stretch added
-after the two the benchmark runs: `trace_units` more units with the
-recorder on, on the host clock, ending in a synchronize; `--turns N` then
-runs N pairs of stretches with the recorder off and on (its cost).  With
-`--inventory 1` one more stretch runs under
-`torch.cuda.set_sync_debug_mode("warn")` with the recorder on, and every
-call that made the host wait for the device is listed by its program frame
-and the innermost span open around it.  One JSON line per seed: the traced
-run's result line, with `program` (the span values per unit, the recorder's
-stretch and its summary, the counts, the inventory).
+`span`, `count`, `record`).  A `--trace 1` run's third stretch runs with
+the recorder on (portbench/tracing.py, portbench/recording.py), and the
+span metrics read it.  This script runs each seed's traced run in this
+process and prints, beside its result line, that stretch's span values,
+summary and counts; `--turns N` then runs N pairs of stretches with the
+recorder off and on (its cost).  With `--inventory 1` one more stretch runs
+under `torch.cuda.set_sync_debug_mode("warn")` with the recorder on, and
+every call that made the host wait for the device is listed by its program
+frame and the innermost span open around it.  One JSON line per seed: the
+traced run's result line, with `program` (the span values per unit, the
+recorded stretch and its summary, the counts, the turns, the inventory).
 """
 
 import contextlib
@@ -36,54 +33,7 @@ for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from portbench import harness, tracing  # noqa: E402
-
-SYNC = "sync:"
-
-
-def values(summary: Dict[str, Dict[str, float]], counts: Dict[str, int],
-           units: int) -> Dict[str, float]:
-    """Each span metric of a stretch of `units` train steps (the `.train`
-    variants, read where `step` spans ran) or requests (`.request`, where
-    `request` spans ran), from its recording's summary and counts: times
-    and syncs per unit.  A span that never ran gives no value, and a
-    recording with neither root (a program without spans) gives none."""
-    variant = "train" if "step" in summary else "request" if "request" in summary else None
-    if variant is None or units <= 0:
-        return {}
-    syncs = [d for name, d in summary.items() if name.startswith(SYNC)]
-    out = {
-        "host_syncs": sum(d["n"] for d in syncs) / units,
-        "host_wait_ms": sum(d["ms"] for d in syncs) / units,
-    }
-    per_unit = {"train": {"clustering_ms": ("model:cluster", "ms"),
-                          "backward_ms": ("step:backward", "ms"),
-                          "optimizer_ms": ("step:optimizer", "ms")},
-                "request": {"scatter_ms": ("request:scatter", "self_ms"),
-                            "ransac_ms": ("request:ransac", "ms")}}[variant]
-    for metric, (name, key) in per_unit.items():
-        if name in summary:
-            out[metric] = summary[name][key] / units
-    if variant == "request" and counts.get("dense_grids_convolved"):
-        out["dense_grid_live_pct"] = 100.0 * counts["dense_grids_live"] / counts["dense_grids_convolved"]
-    return {f"{k}.{variant}": v for k, v in out.items()}
-
-
-def recorded_stretch(run_units: Callable[[Callable], int], sync: Callable[[], None],
-                     on: bool = True) -> Dict:
-    """`run_units` with the program's recorder on (or, `on` false, off), on
-    the host clock to a synchronize: wall time, units, the recording's
-    summary and counts."""
-    from gapartnet_tpu_torch.utils import profiling
-
-    sync()
-    with profiling.record() if on else contextlib.nullcontext() as rec:
-        t0 = time.perf_counter()
-        units = run_units(contextlib.nullcontext)
-        sync()
-        wall = time.perf_counter() - t0
-    if not on:
-        return {"wall_s": wall, "units": units}
-    return {"wall_s": wall, "units": units, "summary": rec.summary(), "counts": rec.counts}
+from portbench.recording import SYNC, recorded_stretch, values  # noqa: E402
 
 
 def sync_inventory(run_units: Callable[[Callable], int], sync: Callable[[], None]) -> Dict:
@@ -150,12 +100,12 @@ def main(argv=None) -> int:
 
         def with_program_spans(run_units, modules, backbone):
             trace = traced(run_units, modules, backbone)
-            rec = recorded_stretch(run_units, torch.cuda.synchronize)
-            extra.update(stretch={"wall_s": rec["wall_s"], "units": rec["units"],
+            extra.update(stretch={"wall_s": trace.program_s, "units": trace.program_units,
                                   "unprofiled_s": trace.untraced_s,
                                   "unprofiled_units": trace.untraced_units},
-                         values=values(rec["summary"], rec["counts"], rec["units"]),
-                         summary=rec["summary"], counts=rec["counts"])
+                         values=values(trace.program_summary, trace.program_counts,
+                                       trace.program_units),
+                         summary=trace.program_summary, counts=trace.program_counts)
             # the recorder's cost: stretches with it off and on, in turns
             turns = [recorded_stretch(run_units, torch.cuda.synchronize, on)
                      for _ in range(args.turns) for on in (False, True)]

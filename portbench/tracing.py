@@ -1,6 +1,6 @@
 """The traced stretch of a `--trace 1` run, read in memory.
 
-`traced_stretch` runs a few steps or requests twice.  The first stretch
+`traced_stretch` runs a few steps or requests three times.  The first stretch
 runs with no profiler, only CUDA events around the backbone's forward, and
 is timed by the host clock to a synchronize: the readers of times and
 rates (`backbone_fwd_ms.*`, `mfu_pct.*`) take it, since the profiler's
@@ -8,21 +8,25 @@ cost per host op about doubles a host-bound step.  The second runs under
 torch.profiler (host ops and device activity), with a span for the whole
 stretch that ends in a synchronize, a span for each unit of work and a
 span for each hooked module's forward: the device intervals, the idle
-stretches and the kernels' device time come from it.  Nothing is written
-to disk: the profiler's events are read once into a `Trace`, from which
-the per-layer readers (portbench/metrics) take their numbers.
+stretches and the kernels' device time come from it.  The third runs with
+the program's recorder on (portbench/recording.py) and no profiler, on the
+host clock to a synchronize: the span and counter metrics take it.  Nothing
+is written to disk: the profiler's events and the recording are read once
+into a `Trace`, from which the per-layer readers (portbench/metrics) take
+their numbers.
 """
 
 import bisect
 import collections
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from portbench import stats
+from portbench import recording, stats
 
 STRETCH = "portbench:stretch"
 UNIT = "portbench:unit"
@@ -44,6 +48,11 @@ class Trace:
     # the work of each stretch's units (portbench/work.py), filled by the traffic
     untraced_work: Dict[str, float] = dataclasses.field(default_factory=dict)
     work: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the recorded stretch, after the other two (none where the program has no recorder)
+    program_s: float = 0.0               # host time of the stretch, ending in a synchronize
+    program_units: int = 0               # steps or requests in it
+    program_summary: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
+    program_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def device_seconds(self, pattern) -> float:
         return sum(e - s for n, s, e in self.device if pattern.search(n))
@@ -116,27 +125,49 @@ class _ForwardEvents:
             h.remove()
 
 
-def _innermost(spans_by_thread, t: float) -> str:
+def _host_index(spans: List[Tuple[str, float, float]]):
+    """One thread's host events as (starts, spans, parents), sorted by start
+    and, at one start, the longest first; each event's parent is the latest
+    earlier one still open at its start (a thread's events nest), -1 at a root."""
+    spans = sorted(spans, key=lambda s: (s[1], -s[2]))
+    parents, open_ = [], []
+    for i, (_, start, _) in enumerate(spans):
+        while open_ and spans[open_[-1]][2] < start:
+            open_.pop()
+        parents.append(open_[-1] if open_ else -1)
+        open_.append(i)
+    return [s[1] for s in spans], spans, parents
+
+
+def _innermost(index_by_thread, t: float) -> str:
     """Name of the innermost host event at time t (the latest-starting one
-    that contains t), with its parent's name before it."""
-    best = None
-    for starts, spans in spans_by_thread.values():
-        i = bisect.bisect_right(starts, t)
-        chain = [s for s in spans[max(0, i - 400):i] if s[1] <= t <= s[2]]
-        if chain and (best is None or chain[-1][1] > best[-1][1]):
-            best = chain
-    if not best:
-        return "host: no op"
-    names = [s[0] for s in best if s[0] != STRETCH]
-    return " > ".join(names[-2:]) if names else "host: no op"
+    that contains t, on any thread), with its parent's name before it.  On
+    each thread the latest event to start by t, or the nearest of its
+    enclosing events that has not ended by t, is the innermost there,
+    however long ago its parents started."""
+    best, best_start = None, None
+    for starts, spans, parents in index_by_thread.values():
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and spans[i][2] < t:
+            i = parents[i]
+        if i < 0 or (best_start is not None and spans[i][1] <= best_start):
+            continue
+        best_start, names = spans[i][1], []
+        while i >= 0 and len(names) < 2:
+            if spans[i][0] != STRETCH and spans[i][1] <= t <= spans[i][2]:
+                names.append(spans[i][0])
+            i = parents[i]
+        best = names
+    return " > ".join(reversed(best)) if best else "host: no op"
 
 
 def traced_stretch(run_units: Callable[[Callable], int], modules: Dict[str, torch.nn.Module],
                    backbone: Optional[torch.nn.Module]) -> Trace:
-    """Run `run_units(unit_span)` twice: with no profiler and CUDA events
-    around `backbone`'s forward, then under the profiler with spans around
-    `modules`' forwards.  `unit_span()` gives the context manager the
-    traffic wraps each step or request in, and `run_units` returns the
+    """Run `run_units(unit_span)` three times: with no profiler and CUDA
+    events around `backbone`'s forward; under the profiler with spans
+    around `modules`' forwards; with the program's recorder on (skipped
+    where the program has none).  `unit_span()` gives the context manager
+    the traffic wraps each step or request in, and `run_units` returns the
     number of units it ran."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -160,7 +191,22 @@ def traced_stretch(run_units: Callable[[Callable], int], modules: Dict[str, torc
     finally:
         spans.remove()
     torch.cuda.synchronize()
+    trace = Trace(untraced_s=untraced_s, untraced_units=untraced_units, backbone_ms=backbone_ms,
+                  units=units, **_read_profile(prof))
+    # the profiler's events go, and are collected, before the recorded
+    # stretch: left to the collector they slow its steps by about a tenth
+    del prof
+    gc.collect()
 
+    rec = recording.recorded_stretch(run_units, torch.cuda.synchronize)
+    if rec is not None:
+        trace.program_s, trace.program_units = rec["wall_s"], rec["units"]
+        trace.program_summary, trace.program_counts = rec["summary"], rec["counts"]
+    return trace
+
+
+def _read_profile(prof) -> Dict:
+    """The profiled stretch's fields of a `Trace`, from the profiler's events."""
     events = prof.profiler.kineto_results.events()
     cpu = [e for e in events if e.device_type() == torch.autograd.DeviceType.CPU]
     # device-side copies of host annotations (record_function spans) share
@@ -176,17 +222,14 @@ def traced_stretch(run_units: Callable[[Callable], int], modules: Dict[str, torc
     device = [(n, max(s, lo), min(e, hi)) for n, s, e in device if e > lo and s < hi]
     busy = stats.union_length([(s, e) for _, s, e in device], lo, hi)
 
-    # host spans per thread, sorted by start, for naming idle stretches
+    # host spans per thread, nested, for naming idle stretches
     by_thread = collections.defaultdict(list)
     for e in cpu:
         by_thread[e.start_thread_id()].append((e.name(), _t(e, "start"), _t(e, "end")))
-    spans_by_thread = {}
-    for tid, spans in by_thread.items():
-        spans.sort(key=lambda s: s[1])
-        spans_by_thread[tid] = ([s[1] for s in spans], spans)
+    index_by_thread = {tid: _host_index(spans) for tid, spans in by_thread.items()}
     idle = collections.Counter()
     for a, b in stats.gaps([(s, e) for _, s, e in device], lo, hi):
-        idle[_innermost(spans_by_thread, 0.5 * (a + b))] += b - a
+        idle[_innermost(index_by_thread, 0.5 * (a + b))] += b - a
 
     # kernels launched under aten::convolution: the op each kernel links to
     # starts inside a convolution op of its thread
@@ -207,6 +250,5 @@ def traced_stretch(run_units: Callable[[Callable], int], modules: Dict[str, torc
         if i >= 0 and iv[i][0] <= th_t[1] <= iv[i][1]:
             s, t = max(_t(e, "start"), lo), min(_t(e, "end"), hi)
             under_conv += max(t - s, 0.0)
-    return Trace(untraced_s=untraced_s, untraced_units=untraced_units, backbone_ms=backbone_ms,
-                 window_s=hi - lo, busy_s=busy, units=units, device=device,
-                 under_conv_s=under_conv, idle_by_host=[[n, t] for n, t in idle.most_common(10)])
+    return dict(window_s=hi - lo, busy_s=busy, device=device, under_conv_s=under_conv,
+                idle_by_host=[[n, t] for n, t in idle.most_common(10)])
