@@ -1885,7 +1885,7 @@ def check_metric_lines(tag, lines, cfg):
             raise AssertionError(f"{tag}: non-finite metrics {bad}")
         keys = set(line) - {"step"}
         if "epoch" in line:
-            want = set(train_metric_names(True))
+            want = set(train_metric_names(True, clustering_impl=cfg.model.clustering_impl))
             if keys != want:
                 raise AssertionError(f"{tag}: train line names differ: {sorted(keys ^ want)}")
         else:
@@ -2996,12 +2996,12 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
         torch.cuda.synchronize()
         stats = dict(bq.STATS)
         ccl.STATS.update(calls=0, iterations=0)
-        lab = ccl.connected_components_single(nbr, valid)
+        lab = ccl.connected_components_single(nbr, valid)[0]
         torch.cuda.synchronize()
         iters = ccl.STATS["iterations"]
 
         def label():
-            return ccl.connected_components_single(nbr, valid)
+            return ccl.connected_components_single(nbr, valid)[0]
 
         row = dict(k=k, tiles=stats["tiles"], exact_pairs=stats["exact_pairs"], ccl_iterations=iters,
                    bq_ms=cuda_ms(query, EXACT_CALL_RUNS), ccl_ms=cuda_ms(label, EXACT_CALL_RUNS))
@@ -3018,11 +3018,11 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
         row["all_valid"]["bq_device_ms"], row["all_valid"]["bq_kernels"] = busy_ms(query_all)
         ccl.STATS.update(calls=0, iterations=0)
         row["all_valid"]["ccl_ms"] = cuda_ms(
-            lambda: ccl.connected_components_single(nbr_all, everyone), EXACT_CALL_RUNS)
+            lambda: ccl.connected_components_single(nbr_all, everyone)[0], EXACT_CALL_RUNS)
         row["all_valid"]["ccl_iterations"] = ccl.STATS["iterations"] // (EXACT_CALL_RUNS + 3)
         t0 = time.perf_counter()
         nbr_c, cnt_c = bq.ball_query_single(pts.cpu(), sem.cpu(), valid.cpu(), cfg.ball_query_radius, k)
-        lab_c = ccl.connected_components_single(nbr_c, valid.cpu())
+        lab_c = ccl.connected_components_single(nbr_c, valid.cpu())[0]
         row["cpu_s"] = time.perf_counter() - t0
         _check_neighbours(f"set {name}", nbr, nbr_c, pts, cfg.ball_query_radius)
         _check_equal(f"set {name}: neighbour counts", cnt, cnt_c)

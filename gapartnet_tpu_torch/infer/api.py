@@ -383,6 +383,7 @@ class GAPartNetInference:
             num_dropped=dev(np.int32(max(masks.shape[0] - m, 0))),
             ccl_overflow=dev(np.int32(0)),
             ccl_cand_truncated=dev(np.int32(0)),
+            ccl_unconverged=torch.zeros((1,), dtype=torch.int32, device=self.device),
         )
 
     def predict_with_masks(self, points: np.ndarray, masks: np.ndarray, ransac_iters: int = 100,

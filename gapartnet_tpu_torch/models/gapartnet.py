@@ -15,7 +15,8 @@ The backbone is the SparseUNet on the input voxel grid or, with
 `backbone_type="PointNet"`, models/pointnet.py on the points themselves
 (no voxel grid, so no `backbone_voxels_dropped` counter).  Clustering is
 the hash-grid CCL or, with `clustering_impl="exact"`, the reference's
-first-K ball query and list CCL (models/grouping.py).
+first-K ball query and list CCL (models/grouping.py), which adds the
+counter `ccl_exact_unconverged` (sets whose CCL its iteration cap cut off).
 
 `frozen_bn` names the modules whose BatchNorms normalize with their running
 statistics in a training forward, as the JAX model's `frozen_bn` does: it
@@ -105,7 +106,8 @@ class ModelOutput:
     # sparse proposal grid: its hierarchy, and each entry's voxel (B, 2N)
     proposal_grid: Optional[GridHierarchy] = None
     entry_voxel_id: Optional[torch.Tensor] = None
-    # capacity-overflow counters, (B,) int32 each; all zero in healthy runs
+    # capacity-overflow counters, (B,) int32 each (exact clustering adds
+    # ccl_exact_unconverged); all zero in healthy runs
     counters: Optional[Dict[str, torch.Tensor]] = None
     # losses (scalars; zero where a stage is off) and accuracies, with labels
     loss_sem_seg: Optional[torch.Tensor] = None
@@ -481,6 +483,8 @@ class GAPartNet(nn.Module):
             counters["dropped_proposals"] = prop.num_dropped
             counters["ccl_node_overflow"] = prop.ccl_overflow
             counters["ccl_cand_truncated"] = prop.ccl_cand_truncated
+            if cfg.clustering_impl == "exact":
+                counters["ccl_exact_unconverged"] = prop.ccl_unconverged
             if inv.mode() != "off":
                 for cname, cval in counters.items():
                     inv.check_traced(torch.all(cval == 0), "capacity overflow in " + cname)

@@ -8,7 +8,9 @@ ball query with list CCL), `proposal_cube_coords`,
 sample owns exactly 2N proposal "entries" (each valid point appears once
 per clustering set) and at most P proposals; everything downstream indexes
 through (entry_point, entry_proposal, masks).  Spans (utils/profiling.py):
-`cluster:cloud` with its `cluster:compact`, and `grid:proposals` per cloud.
+`cluster:cloud` with its `cluster:compact` (and with exact clustering the
+ops' `cluster:ball_query` and `cluster:ccl`), and `grid:proposals` per
+cloud.
 """
 
 from typing import NamedTuple
@@ -37,6 +39,7 @@ class SampleProposals(NamedTuple):
     num_dropped: torch.Tensor       # () int32 proposals beyond max_proposals
     ccl_overflow: torch.Tensor      # () int32 hash-CCL node-table overflow
     ccl_cand_truncated: torch.Tensor  # () int32 hash-CCL candidate/degree drops
+    ccl_unconverged: torch.Tensor   # () int32 exact-CCL sets cut off by the iteration cap
 
 
 class ProposalGrid(NamedTuple):
@@ -72,7 +75,9 @@ def cluster_single(
     impl="hash": both sets in one hash-CCL call.  impl="exact": per set a
     first-K ball query (K = max_num_points_per_query on xyz,
     max_num_points_per_query_shift on xyz + offsets) and list CCL, the
-    reference's neighbour semantics; its two CCL counters are zero."""
+    reference's neighbour semantics; its two hash-CCL counters are zero, and
+    `ccl_unconverged` counts the sets whose CCL the iteration cap cut off
+    before its fixpoint (zero with impl="hash")."""
     with span("cluster:cloud"):
         dev = pt_xyz.device
         n = pt_xyz.shape[0]
@@ -92,14 +97,16 @@ def cluster_single(
             )
             # components never span sets, so set-2 labels map back by -n
             lab1, lab2 = lab[:n], lab[n:] - n
+            ccl_unconverged = torch.zeros((), dtype=i32, device=dev)
         elif impl == "exact":
             nbr1, _ = ball_query_single(pt_xyz, sem_preds, valid, ball_query_radius,
                                         max_num_points_per_query)
-            lab1 = connected_components_single(nbr1, valid)
+            lab1, cut1 = connected_components_single(nbr1, valid)
             nbr2, _ = ball_query_single(pt_xyz + offsets, sem_preds, valid, ball_query_radius,
                                         max_num_points_per_query_shift)
-            lab2 = connected_components_single(nbr2, valid)
+            lab2, cut2 = connected_components_single(nbr2, valid)
             ccl_overflow = ccl_cand_truncated = torch.zeros((), dtype=i32, device=dev)
+            ccl_unconverged = torch.full((), cut1 + cut2, dtype=i32, device=dev)
         else:
             raise ValueError(f"unknown clustering impl {impl}")
 
@@ -135,6 +142,7 @@ def cluster_single(
             num_dropped=num_kept - num_proposals,
             ccl_overflow=ccl_overflow,
             ccl_cand_truncated=ccl_cand_truncated,
+            ccl_unconverged=ccl_unconverged,
         )
 
 

@@ -28,10 +28,22 @@ per tile).  Within a tile a row's rank among its hits is a cumulative
 sum, and the hits of rank <= K are scattered into their slots.  Plain
 PyTorch: no kernel of its own.  `STATS` counts calls, tiles and the pairs
 decided by the exact chain.
+
+Spans and counters (utils/profiling.py): `cluster:ball_query` around each
+call; the host syncs `sync:ball_query_constant` (r2 copied to the device),
+`sync:ball_query_valid` (the gather of the valid points) and
+`sync:ball_query_band` (each tile's band `nonzero`); the counters
+`ball_query_tiles`, `ball_query_band_pairs` (the pairs the exact chain
+decides) and, reduced on the device and only while a recording is on,
+`ball_query_full_rows` (rows whose hits reached K), `ball_query_hits` (the
+neighbours listed) and `ball_query_index_sum` (the sum of their indices,
+which tells the first K from any other K of a row's hits).
 """
 
 import numpy as np
 import torch
+
+from gapartnet_tpu_torch.utils.profiling import count, span
 
 # (query, point) pairs per tile: about 70 MB per float64 temporary
 TILE_ELEMENTS = 1 << 23
@@ -81,8 +93,10 @@ def within_radius(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor, y_first: b
     dx, dy, dz = (q[:, None, i] - p[None, :, i] for i in range(3))
     d2 = (dx * dx + dy * dy) + dz * dz
     ok = d2 <= r2
-    near = torch.nonzero((d2 - r2).abs() <= r2 * BAND, as_tuple=True)
+    with span("sync:ball_query_band"):
+        near = torch.nonzero((d2 - r2).abs() <= r2 * BAND, as_tuple=True)
     STATS["exact_pairs"] += int(near[0].numel())
+    count("ball_query_band_pairs", int(near[0].numel()))
     ok[near] = _fma_chain(dx[near], dy[near], dz[near], y_first) <= r2
     return ok
 
@@ -102,27 +116,34 @@ def ball_query_single(
     points alone, gathered in ascending order (one host sync): the first K
     of them by position are the first K by point index.  Invalid rows stay
     -1 with count 0."""
-    n = pt_xyz.shape[0]
-    k = max_neighbors
-    dev = pt_xyz.device
-    r2 = torch.tensor(np.float32(radius * radius), device=dev)
-    sel = torch.nonzero(valid).squeeze(1)
-    m = sel.shape[0]
-    xyz = pt_xyz.to(torch.float32)[sel]
-    lab = labels.to(torch.int32)[sel]
-    neighbor_idx = torch.full((n, k), -1, dtype=torch.int32, device=dev)
-    counts = torch.zeros((n,), dtype=torch.int32, device=dev)
-    qb = max(1, TILE_ELEMENTS // max(m, 1))
-    STATS["calls"] += 1
-    for q0 in range(0, m, qb):
-        q1 = min(m, q0 + qb)
-        STATS["tiles"] += 1
-        ok = within_radius(xyz[q0:q1], xyz, r2, y_first=n <= JAX_QUERY_BLOCK)
-        ok &= lab[q0:q1, None] == lab[None, :]
-        rank = torch.cumsum(ok, dim=1, dtype=torch.int32)
-        slot = torch.where(ok & (rank <= k), rank - 1, k).long()
-        buf = torch.full((q1 - q0, k + 1), -1, dtype=torch.int64, device=dev)
-        buf.scatter_(1, slot, sel.expand(q1 - q0, m))
-        neighbor_idx[sel[q0:q1]] = buf[:, :k].to(torch.int32)
-        counts[sel[q0:q1]] = torch.clamp(rank[:, -1], max=k)
-    return neighbor_idx, counts
+    with span("cluster:ball_query"):
+        n = pt_xyz.shape[0]
+        k = max_neighbors
+        dev = pt_xyz.device
+        with span("sync:ball_query_constant"):
+            r2 = torch.tensor(np.float32(radius * radius), device=dev)
+        with span("sync:ball_query_valid"):
+            sel = torch.nonzero(valid).squeeze(1)
+        m = sel.shape[0]
+        xyz = pt_xyz.to(torch.float32)[sel]
+        lab = labels.to(torch.int32)[sel]
+        neighbor_idx = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+        counts = torch.zeros((n,), dtype=torch.int32, device=dev)
+        qb = max(1, TILE_ELEMENTS // max(m, 1))
+        STATS["calls"] += 1
+        for q0 in range(0, m, qb):
+            q1 = min(m, q0 + qb)
+            STATS["tiles"] += 1
+            count("ball_query_tiles", 1)
+            ok = within_radius(xyz[q0:q1], xyz, r2, y_first=n <= JAX_QUERY_BLOCK)
+            ok &= lab[q0:q1, None] == lab[None, :]
+            rank = torch.cumsum(ok, dim=1, dtype=torch.int32)
+            slot = torch.where(ok & (rank <= k), rank - 1, k).long()
+            buf = torch.full((q1 - q0, k + 1), -1, dtype=torch.int64, device=dev)
+            buf.scatter_(1, slot, sel.expand(q1 - q0, m))
+            neighbor_idx[sel[q0:q1]] = buf[:, :k].to(torch.int32)
+            counts[sel[q0:q1]] = torch.clamp(rank[:, -1], max=k)
+        count("ball_query_full_rows", lambda: (counts == k).sum())
+        count("ball_query_hits", lambda: counts.sum())
+        count("ball_query_index_sum", lambda: neighbor_idx.clamp(min=0).sum())
+        return neighbor_idx, counts

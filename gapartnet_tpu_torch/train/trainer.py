@@ -78,9 +78,11 @@ TRAIN_COUNTERS = {
 }
 
 
-def _counters(table, flag: bool, backbone_type: str):
-    return tuple(c for c in table[flag]
-                 if not (backbone_type == "PointNet" and c == "backbone_voxels_dropped"))
+def _counters(table, flag: bool, backbone_type: str, clustering_impl: str = "hash"):
+    """The counters of a forward; exact clustering adds `ccl_exact_unconverged`."""
+    names = tuple(c for c in table[flag]
+                  if not (backbone_type == "PointNet" and c == "backbone_voxels_dropped"))
+    return names + (("ccl_exact_unconverged",) if flag and clustering_impl == "exact" else ())
 
 
 def run_name(cfg: Config) -> str:
@@ -440,18 +442,21 @@ def eval_metric_names(cfg: Config, do_instance: bool) -> List[str]:
     for split in SPLITS:
         keys += [f"{split}/{m}" for m in per_split]
         keys += [f"{split}/counters/{c}"
-                 for c in _counters(EVAL_COUNTERS, do_instance, cfg.model.backbone_type)]
+                 for c in _counters(EVAL_COUNTERS, do_instance, cfg.model.backbone_type,
+                                    cfg.model.clustering_impl)]
     keys += [f"monitor_metrics/mean_{m}" for m in ("all_accu", "pixel_accu", "imou", "AP@50", "mAP")]
     return keys
 
 
-def train_metric_names(do_cluster: bool, backbone_type: str = "SparseUNet") -> List[str]:
+def train_metric_names(do_cluster: bool, backbone_type: str = "SparseUNet",
+                       clustering_impl: str = "hash") -> List[str]:
     """The names of an epoch's training line (besides `step`)."""
     names = ["train_loss/total_loss"] + [
         f"train_loss/{k}" for k in ("loss_sem_seg", "loss_offset_dist", "loss_offset_dir",
                                     "loss_prop_score", "loss_prop_npcs")]
     names += ["train_all_accu", "train_pixel_accu"]
-    names += [f"train_counters/{c}" for c in _counters(TRAIN_COUNTERS, do_cluster, backbone_type)]
+    names += [f"train_counters/{c}"
+              for c in _counters(TRAIN_COUNTERS, do_cluster, backbone_type, clustering_impl)]
     return names + ["epoch", "epoch_time_s"]
 
 

@@ -24,8 +24,9 @@ your own calls:
 
 Spans are host times (`time.perf_counter_ns`), kept in memory.  A count
 given as a device tensor is summed when the block ends, after the caller's
-synchronize, so no count makes the host wait.  The recorder serves one
-thread at a time (a backward's worker thread runs while its caller waits).
+synchronize, so no count makes the host wait (the recorder reads each
+tensor counter once then).  The recorder serves one thread at a time (a
+backward's worker thread runs while its caller waits).
 """
 
 import contextlib
@@ -34,7 +35,7 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -151,12 +152,12 @@ class Recording:
             self.counts[name] = self.counts.get(name, 0) + int(value)
 
     def _close(self) -> None:
-        """Spans still open end now; tensor counts are summed (one read
-        each, after the caller's synchronize)."""
+        """Spans still open end now; tensor counts are summed on their
+        device (one read per counter, after the caller's synchronize)."""
         end = time.perf_counter_ns()
         self.spans = [Span(n, p, t0, end if t1 is None else t1) for n, p, t0, t1 in self._rows]
         for name, ts in self._tensors.items():
-            self.counts[name] = self.counts.get(name, 0) + sum(int(t.sum()) for t in ts)
+            self.counts[name] = self.counts.get(name, 0) + int(sum(t.sum() for t in ts))
         self._tensors = {}
 
     def summary(self) -> Dict[str, Dict[str, float]]:
@@ -213,11 +214,12 @@ def span(name: str):
     return _Span(name)
 
 
-def count(name: str, value: Union[int, torch.Tensor]) -> None:
+def count(name: str, value: Union[int, torch.Tensor, Callable]) -> None:
     """Add `value` (an int, or a tensor whose sum counts; keep it unchanged
-    until the recording ends) to the counter `name` while `record()` is on."""
+    until the recording ends) to the counter `name` while `record()` is on.
+    A callable `value` is called only then, for counts that cost device work."""
     if _recording is not None:
-        _recording._count(name, value)
+        _recording._count(name, value() if callable(value) else value)
 
 
 @contextlib.contextmanager

@@ -41,7 +41,8 @@ def outputs():
 
 def _jax_view(out):
     """The same outputs as the JAX functions read them (numpy arrays)."""
-    prop = JaxProposals(*[jnp.asarray(t.numpy()) for t in out.proposals])
+    prop = JaxProposals(*[jnp.asarray(getattr(out.proposals, f).numpy())
+                          for f in JaxProposals._fields])
     return types.SimpleNamespace(
         proposals=prop, score_preds=jnp.asarray(out.score_preds.numpy()),
         sem_preds=jnp.asarray(out.sem_preds.numpy()), ious=jnp.asarray(out.ious.numpy()))

@@ -258,7 +258,8 @@ def test_dense_pool_sized_by_live_proposals(setup, jax_with_proposals, per_cloud
         for i, m in enumerate(per_cloud)]
     prop = SampleProposals(*[torch.cat(f) for f in zip(*per)])
     jo = jax_with_proposals(variables, jbatch,
-                            JaxProposals(*[jnp.asarray(t.numpy()) for t in prop]), capacity)
+                            JaxProposals(*[jnp.asarray(getattr(prop, f).numpy())
+                                           for f in JaxProposals._fields]), capacity)
     tm = GAPartNet(cfg)
     tm.load_state_dict(params_from_jax(variables), strict=True)
     tm.eval()

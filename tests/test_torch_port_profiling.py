@@ -179,6 +179,23 @@ def test_tensor_counts_are_summed_when_the_recording_ends():
     assert rec.counts == {"live": 3, "grids": 8}
 
 
+def test_callable_count_is_called_only_while_recording():
+    """A callable count costs nothing with the recorder off; on, its value
+    counts as an int or a tensor would."""
+    calls = []
+
+    def rows():
+        calls.append(1)
+        return torch.tensor([True, True, False])
+
+    tprof.count("rows", rows)
+    assert calls == []
+    with tprof.record() as rec:
+        tprof.count("rows", rows)
+        tprof.count("rows", lambda: 5)
+    assert calls == [1] and rec.counts == {"rows": 7}
+
+
 def test_record_is_off_after_an_error_and_not_reentrant():
     with pytest.raises(RuntimeError, match="already on"):
         with tprof.record():
@@ -305,3 +322,70 @@ def test_train_step_spans_and_ccl_syncs(monkeypatch):
     assert names.count("ccl:iteration") == len(syncs)
     assert all("model:cluster" in _ancestors(rec, s) for s in syncs)
     assert "dense_grids_live" not in rec.counts   # training runs the sparse UNets
+
+
+def test_exact_train_step_ball_query_and_ccl_spans():
+    """With exact clustering each cloud runs two ball queries and two CCLs,
+    a `cluster:ball_query` and a `cluster:ccl` span each inside its
+    `cluster:cloud`; every host sync has its span: the r2 copy and the
+    valid points' gather once a ball query, the band `nonzero` once a tile,
+    the convergence test once per CCL iteration (the last test finds the
+    labels unchanged).  No CCL is cut off by its iteration cap."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.data.synthetic import synthetic_batch
+    from gapartnet_tpu_torch.models.gapartnet import GAPartNet
+    from gapartnet_tpu_torch.structures import PointCloudBatch
+    from gapartnet_tpu_torch.train import loop
+    from gapartnet_tpu_torch.weights import init_weights
+
+    cfg = GAPartNetConfig(**SMALL, clustering_impl="exact")
+    model = init_weights(GAPartNet(cfg), torch.Generator().manual_seed(0))
+    opt = loop.adam(model.named_parameters())
+    d = synthetic_batch(np.random.RandomState(0), batch_size=2, num_points=SMALL["max_points"],
+                        num_parts=4, max_instances=SMALL["max_instances"])
+    batch = PointCloudBatch.from_numpy(d, "cpu")
+    inst = batch.instance_labels
+    off = torch.where((inst >= 0)[..., None],
+                      batch.instance_regions[..., :3] - batch.points[..., :3], torch.zeros(()))
+    with tprof.record() as rec:
+        metrics = loop.train_step(model, opt, batch, torch.Generator().manual_seed(1), True, True,
+                                  True, cluster_sem_override=batch.sem_labels,
+                                  cluster_offset_override=off)
+    names = _names(rec)
+    summary = rec.summary()
+    for name in ("cluster:ball_query", "cluster:ccl"):
+        spans = [s for s in rec.spans if s.name == name]
+        assert len(spans) == 2 * 2
+        assert {rec.spans[s.parent].name for s in spans} == {"cluster:cloud"}
+    assert "ccl:iteration" not in names and "sync:ccl_converged" not in names
+    assert summary["sync:ball_query_constant"]["n"] == summary["sync:ball_query_valid"]["n"] == 4
+    assert summary["sync:ball_query_band"]["n"] == rec.counts["ball_query_tiles"] >= 4
+    converged = [s for s in rec.spans if s.name == "sync:ccl_exact_converged"]
+    assert len(converged) == rec.counts["ccl_exact_iterations"] >= 4
+    assert {rec.spans[s.parent].name for s in converged} == {"cluster:ccl"}
+    assert rec.counts["ccl_exact_unconverged"] == 0
+    assert rec.counts["ball_query_band_pairs"] >= 0
+    assert rec.counts["ball_query_hits"] >= rec.counts["ball_query_full_rows"] >= 0
+    assert rec.counts["ball_query_index_sum"] >= 0
+    assert float(metrics["counters/ccl_exact_unconverged"]) == 0
+
+
+@pytest.mark.parametrize("max_iters, cut", [(1, 1), (2, 1), (4, 0), (64, 0)])
+def test_exact_ccl_counts_a_cut_off_chain(max_iters, cut):
+    """A directed chain of 40 nodes reaches its fixpoint in 3 iterations (a
+    4th finds it): a cap below 3 ends the loop before the fixpoint, which
+    the flag and the counter `ccl_exact_unconverged` report, and a cap of
+    4 or more does not; a call makes as many convergence tests as
+    iterations."""
+    from gapartnet_tpu_torch.ops.ccl import connected_components_single
+
+    n = 40
+    nbr = torch.full((n, 2), -1, dtype=torch.int32)
+    nbr[:-1, 0] = torch.arange(1, n, dtype=torch.int32)
+    with tprof.record() as rec:
+        labels, flag = connected_components_single(nbr, torch.ones(n, dtype=torch.bool), max_iters)
+    assert flag == cut and rec.counts["ccl_exact_unconverged"] == cut
+    assert rec.counts["ccl_exact_iterations"] == rec.summary()["sync:ccl_exact_converged"]["n"]
+    assert bool((labels == 0).all()) == (cut == 0)

@@ -158,8 +158,13 @@ def test_eval_parity_matches_jax_tool(data_root, eval_ckpts, tmp_path, monkeypat
     (line,) = (tmp_path / "port" / "parity_metrics.jsonl").read_text().splitlines()
     assert json.loads(line) == {"step": 0, **got}
     want.pop("step")
-    _check_metrics(got, want)
-    printed = [s for s in port_out.splitlines() if s.startswith("  ")]
+    # with exact clustering the port also counts the sets whose CCL its
+    # iteration cap cut off, a counter the JAX tool does not have: 0 here
+    extra = {f"{split}/counters/ccl_exact_unconverged" for split in ttrainer.SPLITS}
+    assert extra <= set(got) and all(got[k] == 0 for k in extra)
+    _check_metrics({k: v for k, v in got.items() if k not in extra}, want)
+    printed = [s for s in port_out.splitlines()
+               if s.startswith("  ") and s.split(":")[0].strip() not in extra]
     assert [s.split(":")[0] for s in printed] == [s.split(":")[0] for s in jax_out.splitlines()
                                                   if s.startswith("  ")]
     assert len(got_records) == len(want_records) == 3 * 2   # 3 splits of 2 batches
