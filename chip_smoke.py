@@ -149,11 +149,16 @@ source, in parallel), then:
      ops/ccl.py) on the bench cloud with the overrides, the proposal cap
      and dense pool fitted to it: 3 warm-ups, then 10 exact forwards in
      turns with 10 hash forwards (each exact forward: 53 forward launches,
-     2 ball queries, 2 CCLs, counted around it; zero counters); the ball
-     query and the CCL of both sets alone (ms per call by CUDA events,
-     kernel ms and launches by the profiler, tiles and CCL iterations, each
-     a host sync) and against the CPU (neighbour lists, counts, labels
-     exactly); the forward against the CPU (phase 4's rules); 2
+     2 ball queries, 2 CCLs of one kernel launch each, counted around it;
+     zero counters; the CCL iterations of one recorded forward, with no
+     host sync); the ball query of both sets alone (ms per call by CUDA
+     events, kernel ms and launches by the profiler, tiles) and the CCL
+     kernel of csrc/ccl_exact.cu (device ms by the profiler, call ms by
+     CUDA events, its bound, the plain loop's ms on the card; labels,
+     iterations and flag equal to the plain loop's on the card and the
+     CPU; also with every point valid: --exact-ops-only runs this alone and
+     prints the CCL's kernel line) and against the CPU (neighbour lists,
+     counts, labels exactly); the forward against the CPU (phase 4's rules); 2
      GAPartNetInference.predict requests with exact clustering at the eval
      capacities against the CPU (phase 7's rules, counters equal to the
      CPU's); 12b, the PointNet backbone (GAPartNetConfig(backbone_type=
@@ -2968,12 +2973,103 @@ def _check_neighbours(name, got, want, pts, radius):
                          " queries")
 
 
+def ccl_kernel_row(tag, nbr, valid, smi):
+    """The exact CCL kernel (csrc/ccl_exact.cu) on one set's card neighbour
+    lists: labels, iteration count and flag against the plain loop on the
+    card and on the CPU (exactly; one launch a call); its device ms a call
+    (profiler, median of PROFILE_WINDOWS windows of EXACT_CALL_RUNS), its
+    call ms (CUDA events, median of EXACT_CALL_RUNS, wrapper included), the
+    plain loop's ms on the card, and the bound: the least the card must
+    move, the listed neighbours and the valid mask read once and the labels
+    written once, at the HBM rate (the labels stay in shared memory and the
+    lists in L2 across iterations); beside it `bound_iterated_ms`, the
+    listed neighbours' and the labels' (read and written) bytes of an
+    iteration, times the iterations.  Prints the row and returns it."""
+    import torch
+
+    from gapartnet_tpu_torch.ops import ccl
+
+    def run():
+        return ccl.connected_components_kernel(nbr, valid)
+
+    launches = ccl.LAUNCHES
+    got = run()
+    if ccl.LAUNCHES != launches + 1:
+        raise AssertionError(f"{tag}: {ccl.LAUNCHES - launches} CCL kernel launches a call")
+    plain = ccl.connected_components_reference(nbr, valid)
+    ccl.STATS["iterations"] = 0
+    cpu = ccl.connected_components_reference(nbr.cpu(), valid.cpu())
+    labels, iterations, flag = (t.cpu() for t in got)
+    for where, (want, want_flag) in (("card", plain), ("CPU", cpu)):
+        _check_equal(f"{tag}: CCL kernel labels vs the plain loop on the {where}", labels, want)
+        if int(flag) != int(want_flag):
+            raise AssertionError(f"{tag}: CCL kernel flag {int(flag)}, the plain loop's on the "
+                                 f"{where} {int(want_flag)}")
+    if int(iterations) != ccl.STATS["iterations"]:
+        raise AssertionError(f"{tag}: CCL kernel {int(iterations)} iterations, the plain loop "
+                             f"{ccl.STATS['iterations']}")
+    n, listed = nbr.shape[0], int((nbr >= 0).sum())
+    nbytes = 4 * listed + n + 4 * n
+    iterated = (4 * listed + 2 * 4 * n) * int(iterations)
+    row = dict(N=n, K=nbr.shape[1], listed=listed, iterations=int(iterations),
+               unconverged=int(flag),
+               device_ms=device_ms(run, EXACT_CALL_RUNS, ("ccl_exact_kernel",)),
+               ms=cuda_ms(run, EXACT_CALL_RUNS),
+               plain_ms=cuda_ms(lambda: ccl.connected_components_reference(nbr, valid),
+                                EXACT_CALL_RUNS),
+               bound_ms=nbytes / PEAK_HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bound_iterated_ms=iterated / PEAK_HBM_BYTES_PER_S * 1e3)
+    print(f"[exact ccl] {tag}: N {row['N']}, K {row['K']}, {listed} neighbours listed, "
+          f"{row['iterations']} iterations, flag {row['unconverged']}; kernel "
+          f"{_fmt(row['device_ms'])} ms device, {row['ms']:.4f} ms a call (one launch, no host "
+          f"sync); bound {row['bound_ms']:.5f} ms ({nbytes} bytes once at 3.35 TB/s; "
+          f"{row['bound_iterated_ms']:.4f} ms for {iterated} bytes an iteration); plain loop "
+          f"{row['plain_ms']:.3f} ms; labels, iterations and flag equal to the plain loop's on "
+          f"the card and the CPU  ({smi})")
+    return row
+
+
+def ccl_kernel_entry(ops, launches=None, forwards=None):
+    """The {"kernels": [...]} entry of the exact CCL kernel: per exact
+    forward of the bench cloud (its two sets), from phase_exact_ops' rows;
+    `launches` are those counted over `forwards` timed forwards of
+    phase_exact (None where no forward ran)."""
+    sets = [ops[name]["ccl"] for name in ("xyz", "xyz+offsets")]
+
+    def forward(key):
+        got = [r[key] for r in sets]
+        return None if None in got else sum(got)
+
+    return {
+        "name": "ccl_exact", "route": "cuda", "source": "gapartnet_tpu_torch/csrc/ccl_exact.cu",
+        "replaces": None, "launches": launches, "forwards": forwards, "per_forward": len(sets),
+        "device_ms": forward("device_ms"), "ms": forward("ms"), "plain_ms": forward("plain_ms"),
+        "bound_ms": forward("bound_ms"), "bound_by": "bytes",
+        "bound_iterated_ms": forward("bound_iterated_ms"), "library_ms": None,
+        "work": "the 2 CCLs of one exact forward of the bench cloud (its two sets); replaces no "
+                "Pallas kernel (the JAX CCL is an XLA while_loop)",
+        "shapes": sets + [ops[name]["all_valid"]["ccl"] for name in ("xyz", "xyz+offsets")],
+    }
+
+
+def phase_exact_ops_only(smi):
+    """--exact-ops-only: phase_exact_ops on the exact cell's cloud (bench
+    cloud, clustering overrides, entry.bench_cloud_setup), then the CCL's
+    kernel line."""
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.entry import bench_cloud_setup
+
+    cfg, batch, sem, off = bench_cloud_setup(GAPartNetConfig(clustering_impl="exact"), device="cuda")
+    print(json.dumps({"kernels": [ccl_kernel_entry(phase_exact_ops(cfg, batch, sem, off, smi))]}))
+
+
 def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
     """The ball query and the CCL of both clustering sets of the forward
     (cloud 0 under the overrides), alone: ms per call (CUDA events, median
     of EXACT_CALL_RUNS), kernel ms and launches (profiler), tiles, exactly
-    decided pairs and CCL iterations (each one host sync); then the same on
-    the CPU: neighbour lists, counts and labels exactly.  The search runs
+    decided pairs; the CCL kernel against the plain loop (ccl_kernel_row);
+    then the same on the CPU: neighbour lists, counts and labels exactly.
+    The search runs
     over the valid (foreground) points only, so each set is also timed with
     every point valid (4e8 pairs, the load of a forward whose sem head marks
     all points foreground).  Returns the rows."""
@@ -2995,18 +3091,11 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
         nbr, cnt = query()
         torch.cuda.synchronize()
         stats = dict(bq.STATS)
-        ccl.STATS.update(calls=0, iterations=0)
         lab = ccl.connected_components_single(nbr, valid)[0]
-        torch.cuda.synchronize()
-        iters = ccl.STATS["iterations"]
-
-        def label():
-            return ccl.connected_components_single(nbr, valid)[0]
-
-        row = dict(k=k, tiles=stats["tiles"], exact_pairs=stats["exact_pairs"], ccl_iterations=iters,
-                   bq_ms=cuda_ms(query, EXACT_CALL_RUNS), ccl_ms=cuda_ms(label, EXACT_CALL_RUNS))
+        row = dict(k=k, tiles=stats["tiles"], exact_pairs=stats["exact_pairs"],
+                   bq_ms=cuda_ms(query, EXACT_CALL_RUNS))
         row["bq_device_ms"], row["bq_kernels"] = busy_ms(query)
-        row["ccl_device_ms"], row["ccl_kernels"] = busy_ms(label)
+        row["ccl"] = ccl_kernel_row(f"set {name}, K={k}", nbr, valid, smi)
         everyone = batch.point_mask[0]
 
         def query_all():
@@ -3016,10 +3105,8 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
         nbr_all, _ = query_all()
         row["all_valid"] = dict(tiles=bq.STATS["tiles"], bq_ms=cuda_ms(query_all, EXACT_CALL_RUNS))
         row["all_valid"]["bq_device_ms"], row["all_valid"]["bq_kernels"] = busy_ms(query_all)
-        ccl.STATS.update(calls=0, iterations=0)
-        row["all_valid"]["ccl_ms"] = cuda_ms(
-            lambda: ccl.connected_components_single(nbr_all, everyone)[0], EXACT_CALL_RUNS)
-        row["all_valid"]["ccl_iterations"] = ccl.STATS["iterations"] // (EXACT_CALL_RUNS + 3)
+        row["all_valid"]["ccl"] = ccl_kernel_row(f"set {name}, K={k}, all valid", nbr_all,
+                                                 everyone, smi)
         t0 = time.perf_counter()
         nbr_c, cnt_c = bq.ball_query_single(pts.cpu(), sem.cpu(), valid.cpu(), cfg.ball_query_radius, k)
         lab_c = ccl.connected_components_single(nbr_c, valid.cpu())[0]
@@ -3032,14 +3119,11 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
               f"{_fmt(row['bq_device_ms'])} ms in {row['bq_kernels']} launches; {row['tiles']} tiles, "
               f"one host sync each; {row['exact_pairs']} pairs decided by the exact chain); "
               f"neighbours per point mean {float(hits[valid].mean()):.1f}, at the cap "
-              f"{int((cnt == k).sum())}; CCL {row['ccl_ms']:.3f} ms per call (kernel "
-              f"{_fmt(row['ccl_device_ms'])} ms in {row['ccl_kernels']} launches), {iters} "
-              f"iterations (one host sync each), {len(torch.unique(lab[valid]))} components  ({smi})")
+              f"{int((cnt == k).sum())}; {len(torch.unique(lab[valid]))} components  ({smi})")
         a = row["all_valid"]
         print(f"[exact ops] set {name}, all {len(pts)} points valid: ball query {a['bq_ms']:.3f} ms "
               f"per call (kernel {_fmt(a['bq_device_ms'])} ms in {a['bq_kernels']} launches, "
-              f"{a['tiles']} tiles); CCL {a['ccl_ms']:.3f} ms per call, {a['ccl_iterations']} "
-              f"iterations  ({smi})")
+              f"{a['tiles']} tiles)  ({smi})")
         print(f"[exact ops] set {name}: CPU {row['cpu_s']:.1f} s; neighbour lists, counts, CCL labels "
               "identical to the card's")
         rows[name] = row
@@ -3063,6 +3147,7 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
     from gapartnet_tpu_torch.ops import ball_query as bq
     from gapartnet_tpu_torch.ops import ccl
     from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.utils import profiling
 
     t = time.perf_counter()
     cfg, batch, sem, off = bench_cloud_setup(GAPartNetConfig(clustering_impl="exact"), device="cuda")
@@ -3077,24 +3162,26 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
     torch.cuda.synchronize()
     times = {"exact": [], "hash": []}
     launches = launch_counts()
-    bq_calls = ccl_calls = iters = 0
+    bq_calls = ccl_calls = ccl_launches = 0
     for _ in range(EXACT_FORWARDS):
         reset_launches()
         bq.STATS.update(calls=0, tiles=0, exact_pairs=0)
-        ccl.STATS.update(calls=0, iterations=0)
+        ccl.STATS.update(calls=0)
+        ccl_launched = ccl.LAUNCHES
         t0 = time.perf_counter()
         out = run_forward(model, batch, sem, off)
         torch.cuda.synchronize()
         times["exact"].append((time.perf_counter() - t0) * 1e3)
         if LAUNCHES != launch_counts(fwd=CONVS_PER_FORWARD):
             raise AssertionError(f"exact forward: subm_conv launched {LAUNCHES}")
-        if (bq.STATS["calls"], ccl.STATS["calls"]) != (2, 2):
+        if (bq.STATS["calls"], ccl.STATS["calls"], ccl.LAUNCHES - ccl_launched) != (2, 2, 2):
             raise AssertionError(f"exact forward: {bq.STATS['calls']} ball queries, "
-                                 f"{ccl.STATS['calls']} CCLs (expected 2 and 2)")
+                                 f"{ccl.STATS['calls']} CCLs, {ccl.LAUNCHES - ccl_launched} CCL "
+                                 "kernel launches (expected 2, 2 and 2)")
         launches["fwd"] += LAUNCHES["fwd"]
         bq_calls += bq.STATS["calls"]
         ccl_calls += ccl.STATS["calls"]
-        iters += ccl.STATS["iterations"]
+        ccl_launches += ccl.LAUNCHES - ccl_launched
         t0 = time.perf_counter()
         run_forward(model_h, hash_batch, hash_sem, hash_off)
         torch.cuda.synchronize()
@@ -3105,13 +3192,20 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
     for name in ("sem_logits", "offset_preds", "score_preds", "npcs_preds"):
         if not bool(torch.isfinite(getattr(out, name)).all()):
             raise AssertionError(f"exact forward: {name} has non-finite values")
+    # the CCL iterations stay on the card: the recorder reads them
+    with profiling.record() as rec:
+        run_forward(model, batch, sem, off)
+        torch.cuda.synchronize()
+    iters = rec.counts["ccl_exact_iterations"]
+    if "sync:ccl_exact_converged" in rec.summary():
+        raise AssertionError("exact forward: the CCL made a host sync on the card")
     q = {k: _quantiles(v) for k, v in times.items()}
     print(f"[exact] ms per cloud, {EXACT_FORWARDS} each in turns (after {EXACT_WARMUPS} warm-ups): "
           + "; ".join(f"{k} median {v['median']:.3f}, p10 {v['p10']:.3f}, p90 {v['p90']:.3f}"
                       for k, v in q.items()) + f"  ({smi})")
     print(f"[exact] per forward: {launches['fwd'] // EXACT_FORWARDS} subm_conv fwd launches, "
           f"{bq_calls // EXACT_FORWARDS} ball queries, {ccl_calls // EXACT_FORWARDS} CCLs, "
-          f"{iters / EXACT_FORWARDS:.1f} CCL iterations; proposals "
+          f"{iters} CCL iterations (one recorded forward); proposals "
           f"{out.proposals.num_proposals.tolist()}; counters {counters}")
     ops = phase_exact_ops(cfg, batch, sem, off, smi)
     phase_compare(cfg, batch, sem, off, model, out)
@@ -3130,7 +3224,8 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
     lap("phase 12a (exact predict, vs CPU)", t)
     return dict(forward_launches=launches, forward_ms=q["exact"], hash_forward_ms=q["hash"],
                 ops=ops, predict_launches=plaunches, predict_ms=_quantiles(ptimes),
-                ccl_iterations_per_forward=iters / EXACT_FORWARDS)
+                ccl_iterations_per_forward=iters,
+                ccl=ccl_kernel_entry(ops, launches=ccl_launches, forwards=EXACT_FORWARDS))
 
 
 def phase_pointnet(tcfg, tbatch, tsem, toff, smi):
@@ -4288,6 +4383,8 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
             entry_["launches"] += tools["launches"][kind]
             entry_["max_abs_err"] = max(entry_["max_abs_err"], tools["max_abs_err"][kind])
         kernels.append(entry_)
+    if exact is not None:
+        kernels.append(exact["ccl"])
     return kernels
 
 
@@ -4324,6 +4421,10 @@ def main():
                         help="build, run phase 9's fit, then hold N rotated bench clouds "
                              "through visu's default-capacity request on the card against "
                              "the CPU (phase 14c's check as a distribution) and stop")
+    parser.add_argument("--exact-ops-only", action="store_true",
+                        help="build, then time the ball query and hold the exact CCL kernel "
+                             "against the plain loop on both sets of the exact cell's cloud, "
+                             "both against the CPU; print the CCL's kernel line and stop")
     parser.add_argument("--port-root", type=Path, default=ROOT,
                         help="the checkout whose gapartnet_tpu_torch is measured (default: "
                              "this script's); with another, the SASS design check only prints")
@@ -4337,6 +4438,7 @@ def main():
         from gapartnet_tpu_torch.config import GAPartNetConfig
         from gapartnet_tpu_torch.entry import bench_cloud_setup, train_setup, use_fp32_math
         from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+        from gapartnet_tpu_torch.ops import ccl
         from gapartnet_tpu_torch.ops import subm_conv as sc
         from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
     except ImportError as e:
@@ -4351,10 +4453,12 @@ def main():
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, nvcc: {nvcc_version(sc.find_nvcc())}")
     t0 = time.perf_counter()
-    libs = sc.build()
+    # another checkout's conv kernels are compared; this one's CCL kernel too
+    sources = sc.SOURCES + (ccl.SOURCE,) if own else sc.SOURCES
+    libs = sc.build(sources)
     print(f"[build] {sc.__file__}: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
-    for line in sc.build_log().splitlines():
+    for line in sc.build_log(sources).splitlines():
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print(f"[build] {line.strip()}")
     for lib in libs.values():
@@ -4377,6 +4481,11 @@ def main():
     if args.visu_draws:
         phase_visu_draws(args.visu_draws, smi)
         lap("visu draws", t)
+        print(smi)
+        return
+    if args.exact_ops_only:
+        phase_exact_ops_only(smi)
+        lap("exact ball query and CCL", t)
         print(smi)
         return
 

@@ -106,7 +106,7 @@ def cluster_single(
                                         max_num_points_per_query_shift)
             lab2, cut2 = connected_components_single(nbr2, valid)
             ccl_overflow = ccl_cand_truncated = torch.zeros((), dtype=i32, device=dev)
-            ccl_unconverged = torch.full((), cut1 + cut2, dtype=i32, device=dev)
+            ccl_unconverged = cut1 + cut2
         else:
             raise ValueError(f"unknown clustering impl {impl}")
 

@@ -66,6 +66,8 @@ The kernels are compiled at first use with nvcc for sm_90a into
 `gapartnet_tpu_torch/_build/` (one library per source, keyed by a hash of
 source, shared headers `csrc/*.cuh` and flags, the sources compiled
 in parallel) and bound through ctypes to plain `extern "C"` launchers.
+`build` takes the sources wanted, so ops/ccl.py builds its own kernel by
+the same route only when exact clustering first runs.
 They launch on the current CUDA device and PyTorch's current stream.  The
 tap splits, row chunks and plans of a shape (which need the card's SM count)
 are computed once per (device, shape) and cached, so a launch costs one ctypes
@@ -80,7 +82,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -122,14 +124,15 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Dict[str, Path]:
-    """Compile every kernel library that is not built yet, one nvcc per
-    source, all started together; return {source stem: library path}.  The
-    compiler's output (with the ptxas register and shared-memory report) is
-    kept beside each library as `<library>.log`."""
-    libs = {src.stem: library_path(src) for src in SOURCES}
+def build(sources: Sequence[Path] = SOURCES) -> Dict[str, Path]:
+    """Compile the libraries of `sources` (the conv kernels' by default)
+    that are not built yet, one nvcc per source, all started together;
+    return {source stem: library path}.  The compiler's output (with the
+    ptxas register and shared-memory report) is kept beside each library as
+    `<library>.log`."""
+    libs = {src.stem: library_path(src) for src in sources}
     jobs = []
-    for src in SOURCES:
+    for src in sources:
         lib = libs[src.stem]
         if lib.exists():
             continue
@@ -155,9 +158,9 @@ def build() -> Dict[str, Path]:
     return libs
 
 
-def build_log() -> str:
-    """The compiler's reports of the current library builds ('' if none)."""
-    logs = [Path(str(library_path(src)) + ".log") for src in SOURCES]
+def build_log(sources: Sequence[Path] = SOURCES) -> str:
+    """The compiler's reports of the current builds of `sources` ('' if none)."""
+    logs = [Path(str(library_path(src)) + ".log") for src in sources]
     return "".join(log.read_text() for log in logs if log.exists())
 
 

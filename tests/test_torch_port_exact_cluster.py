@@ -7,6 +7,8 @@ port against the JAX package, integers exactly.
     (the JAX function runs jitted, its squared distance an FMA chain);
   * `connected_components_single` on ball-query graphs and on two long
     chains, with the iteration bound cut short and at its default 64;
+  * the plain loop on the graphs the card test holds the CCL kernel to,
+    the same inputs;
   * `cluster_single(impl="exact")`;
   * SMALL_CFG with `clustering_impl="exact"`: an eval forward (integers
     exactly, floats 1e-4) and one train step (losses and gradients as
@@ -15,6 +17,8 @@ port against the JAX package, integers exactly.
 JAX is imported inside the CPU tests only: the card test at the end runs on
 a machine without it (`pytest --noconftest -m cuda`).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -199,6 +203,28 @@ def test_cluster_single_exact_matches(max_props):
         assert int(jp.num_dropped) > 0
 
 
+@pytest.mark.parametrize("max_iters", [2, 64])
+def test_cluster_single_exact_counts_capped_sets(monkeypatch, max_iters):
+    """A line of points, each within the radius of its two neighbours only:
+    both sets are one chain, which 2 CCL iterations do not settle.
+    `ccl_unconverged` is the sum of the two sets' flags, a () int32 tensor."""
+    from gapartnet_tpu_torch.ops import ccl
+
+    n = 200
+    xyz = torch.zeros((n, 3))
+    xyz[:, 0] = torch.arange(n) * (0.75 * RADIUS)
+    ones = torch.ones(n, dtype=torch.bool)
+    monkeypatch.setattr(tg, "connected_components_single",
+                        lambda nbr, valid: ccl.connected_components_single(nbr, valid, max_iters))
+    got = tg.cluster_single(xyz, torch.zeros_like(xyz), torch.ones(n, dtype=torch.int32), ones,
+                            RADIUS, 3, 8, impl="exact", max_num_points_per_query=4,
+                            max_num_points_per_query_shift=4)
+    nbr, _ = ball_query_single(xyz, torch.ones(n, dtype=torch.int32), ones, RADIUS, 4)
+    cut = int(ccl.connected_components_reference(nbr, ones, max_iters)[1])
+    assert got.ccl_unconverged.shape == () and got.ccl_unconverged.dtype == torch.int32
+    assert int(got.ccl_unconverged) == 2 * cut == (2 if max_iters == 2 else 0)
+
+
 @pytest.fixture(scope="module")
 def model_setup():
     from tests.test_torch_port_train import small_setup
@@ -282,24 +308,139 @@ def test_exact_model_train_step_matches(model_setup):
     check_stats(tm, new_bs)
 
 
-@pytest.mark.cuda
-def test_card_ball_query_and_ccl_match_cpu():
-    """At N = 20000 on a labelled cloud at the bench's density (both K
-    caps): the card's neighbour lists, counts and CCL labels equal the
-    CPU's."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+@pytest.mark.parametrize("bad", ["nbr_dtype", "valid_dtype", "shape", "cpu"])
+def test_ccl_kernel_wrapper_rejects_bad_inputs(bad):
+    """The kernel's wrapper checks types, shapes and the device before any
+    build or launch."""
+    from gapartnet_tpu_torch.ops import ccl
+
+    nbr, valid = torch.full((8, 4), -1, dtype=torch.int32), torch.ones(8, dtype=torch.bool)
+    args = {"nbr_dtype": (nbr.long(), valid), "valid_dtype": (nbr, valid.int()),
+            "shape": (nbr, valid[:5]), "cpu": (nbr, valid)}[bad]
+    with pytest.raises(TypeError if bad.endswith("dtype") else ValueError):
+        ccl.connected_components_kernel(*args)
+
+
+# the 40-node directed chain: fixpoint after 3 iterations, found by a 4th
+CHAIN_ITERS = ((1, 1), (2, 2), (4, 4), (64, 4))
+CARD_CCL_GRAPHS = (["cloud_k50", "cloud_k300", "no_valid", "chains_3001_64", "chains_3001_200",
+                    "big_chains", "big_clouds"]
+                   + [f"chain40_{m}" for m, _ in CHAIN_ITERS])
+# above the 28,928 nodes whose two label buffers fit an H100 block's 227 KB
+# of shared memory: the kernel keeps them in device scratch
+BIG_N = 30000
+
+
+@functools.lru_cache(maxsize=None)
+def _card_ball_query(k):
+    """The card test's labelled cloud at the bench's density, N = 20000:
+    (xyz, sem, valid) and its CPU neighbour lists and counts at K = k."""
     rng = np.random.RandomState(0)
     n = 20000
     xyz = (rng.rand(n, 3) * 0.5).astype(np.float32)
     sem = rng.randint(0, 4, n).astype(np.int32)
-    valid = sem > 0
-    args = [torch.from_numpy(a) for a in (xyz, sem, valid)]
+    args = tuple(torch.from_numpy(a) for a in (xyz, sem, sem > 0))
+    return args, ball_query_single(*args, RADIUS, k)
+
+
+def _card_ccl_graph(name):
+    """One graph of CARD_CCL_GRAPHS, built on the CPU: (nbr, valid,
+    max_iters, the iterations it takes or None)."""
+    if name.startswith("cloud_k"):
+        args, (nbr, _) = _card_ball_query(int(name[len("cloud_k"):]))
+        return nbr, args[2], 64, None
+    if name == "no_valid":
+        # every row empty, every node its own label
+        (xyz, sem, _), _ = _card_ball_query(50)
+        none = torch.zeros(len(sem), dtype=torch.bool)
+        return ball_query_single(xyz, sem, none, RADIUS, 50)[0], none, 64, 1
+    if name.startswith("chains_3001_"):
+        # N no multiple of the block's 1024 threads; the cap binds at 64
+        nbr, ok = _chains(n=3001)
+        return torch.from_numpy(nbr), torch.from_numpy(ok), int(name.rsplit("_", 1)[1]), None
+    if name == "big_chains":
+        nbr, ok = _chains(n=BIG_N)
+        return torch.from_numpy(nbr), torch.from_numpy(ok), 64, None
+    if name == "big_clouds":
+        # the K = 50 cloud twice over, its second copy's indices moved by N
+        args, (nbr, _) = _card_ball_query(50)
+        n = nbr.shape[0]
+        return (torch.cat([nbr, torch.where(nbr >= 0, nbr + n, nbr)]),
+                torch.cat([args[2], args[2]]), 64, None)
+    max_iters = int(name[len("chain40_"):])
+    chain = torch.full((40, 2), -1, dtype=torch.int32)
+    chain[:-1, 0] = torch.arange(1, 40, dtype=torch.int32)
+    return chain, torch.ones(40, dtype=torch.bool), max_iters, dict(CHAIN_ITERS)[max_iters]
+
+
+@pytest.mark.parametrize("name", CARD_CCL_GRAPHS)
+def test_ccl_card_graphs_match_jax(name):
+    """The graphs the card test holds the kernel to (against the plain
+    loop) are held here, on the same inputs, to the JAX CCL: the plain
+    loop's labels equal JAX's.  Each row lists its neighbours first, then
+    only -1, which is what the kernel relies on (ops/ccl.py)."""
+    import jax.numpy as jnp
+
+    from gapartnet_tpu.ops.ccl import connected_components_single as jax_ccl
+    from gapartnet_tpu_torch.ops import ccl
+
+    nbr, valid, max_iters, iterations = _card_ccl_graph(name)
+    listed = nbr >= 0
+    assert bool((listed[:, 1:] <= listed[:, :-1]).all()), "a -1 before a listed neighbour"
+    want = np.asarray(jax_ccl(jnp.asarray(nbr.numpy()), jnp.asarray(valid.numpy()),
+                              max_iters=max_iters))
+    calls = ccl.STATS["iterations"]
+    got, _ = ccl.connected_components_reference(nbr, valid, max_iters)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if iterations is not None:
+        assert ccl.STATS["iterations"] - calls == iterations
+
+
+def _card_ccl_matches(nbr, valid, max_iters=64):
+    """The CCL of CPU tensors `nbr`, `valid` on the card (one kernel launch,
+    no host sync) against the plain loop on the CPU: labels, the flag, and
+    the counters of iterations and flags, exactly.  Returns the iterations."""
+    from gapartnet_tpu_torch.ops import ccl
+    from gapartnet_tpu_torch.utils import profiling
+
+    with profiling.record() as want_rec:
+        want, want_flag = ccl.connected_components_reference(nbr, valid, max_iters)
+    launches = ccl.LAUNCHES
+    with profiling.record() as rec:
+        got, flag = connected_components_single(nbr.cuda(), valid.cuda(), max_iters)
+        torch.cuda.synchronize()
+    assert ccl.LAUNCHES == launches + 1 and rec.counts["ccl_exact_launches"] == 1
+    assert "sync:ccl_exact_converged" not in rec.summary()
+    assert flag.shape == () and flag.dtype == torch.int32 and flag.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert int(flag) == int(want_flag) == want_rec.counts["ccl_exact_unconverged"]
+    for name in ("ccl_exact_iterations", "ccl_exact_unconverged"):
+        assert rec.counts[name] == want_rec.counts[name], name
+    return rec.counts["ccl_exact_iterations"]
+
+
+@pytest.mark.cuda
+def test_card_ball_query_and_ccl_match_cpu():
+    """At N = 20000 on a labelled cloud at the bench's density (both K
+    caps): the card's neighbour lists and counts equal the CPU's, and the
+    CCL kernel (one launch a call, no host sync) gives the plain loop's
+    labels, iteration count and flag; so it does on every graph of
+    CARD_CCL_GRAPHS: a directed chain cut off at 1, 2, 4 and 64
+    iterations, a graph with no valid node, chains whose N is no multiple
+    of the block, and graphs too large for the shared-memory plan.
+    test_ccl_card_graphs_match_jax holds the plain loop to JAX on the same
+    graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
     for k in (50, 300):
-        want_idx, want_cnt = ball_query_single(*args, RADIUS, k)
+        args, (want_idx, want_cnt) = _card_ball_query(k)
         got_idx, got_cnt = ball_query_single(*[a.cuda() for a in args], RADIUS, k)
         np.testing.assert_array_equal(got_idx.cpu().numpy(), want_idx.numpy())
         np.testing.assert_array_equal(got_cnt.cpu().numpy(), want_cnt.numpy())
-        want = connected_components_single(want_idx, args[2])[0]
-        got = connected_components_single(got_idx, args[2].cuda())[0]
-        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    for name in CARD_CCL_GRAPHS:
+        nbr, valid, max_iters, iterations = _card_ccl_graph(name)
+        got = _card_ccl_matches(nbr, valid, max_iters)
+        if name.startswith("cloud") or name == "big_clouds":
+            assert got > 2, name
+        if iterations is not None:
+            assert got == iterations, name

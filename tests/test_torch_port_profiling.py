@@ -378,14 +378,19 @@ def test_exact_ccl_counts_a_cut_off_chain(max_iters, cut):
     4th finds it): a cap below 3 ends the loop before the fixpoint, which
     the flag and the counter `ccl_exact_unconverged` report, and a cap of
     4 or more does not; a call makes as many convergence tests as
-    iterations."""
-    from gapartnet_tpu_torch.ops.ccl import connected_components_single
+    iterations.  A CPU tensor takes the plain loop: no kernel launch, and
+    the flag a () int32 tensor as on the card."""
+    from gapartnet_tpu_torch.ops import ccl
 
     n = 40
     nbr = torch.full((n, 2), -1, dtype=torch.int32)
     nbr[:-1, 0] = torch.arange(1, n, dtype=torch.int32)
+    launches = ccl.LAUNCHES
     with tprof.record() as rec:
-        labels, flag = connected_components_single(nbr, torch.ones(n, dtype=torch.bool), max_iters)
+        labels, flag = ccl.connected_components_single(nbr, torch.ones(n, dtype=torch.bool),
+                                                       max_iters)
+    assert ccl.LAUNCHES == launches and "ccl_exact_launches" not in rec.counts
+    assert flag.shape == () and flag.dtype == torch.int32
     assert flag == cut and rec.counts["ccl_exact_unconverged"] == cut
     assert rec.counts["ccl_exact_iterations"] == rec.summary()["sync:ccl_exact_converged"]["n"]
     assert bool((labels == 0).all()) == (cut == 0)

@@ -159,6 +159,26 @@ def test_cpu_path_counts_no_launch():
     torch.testing.assert_close(out, subm_conv_reference(x, torch.from_numpy(nbr), w), rtol=0, atol=0)
 
 
+def test_build_compiles_only_the_sources_asked_for(tmp_path, monkeypatch):
+    """`build` compiles the conv kernels' four sources by default and only
+    the exact CCL's when ops/ccl.py asks for it (a stand-in nvcc writes
+    empty libraries)."""
+    from gapartnet_tpu_torch.ops import ccl
+    from gapartnet_tpu_torch.ops import subm_conv as sc
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(sc, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(sc, "BUILD_DIR", tmp_path / "build")
+    libs = sc.build((ccl.SOURCE,))
+    assert list(libs) == ["ccl_exact"] and libs["ccl_exact"].exists()
+    assert sorted(p.name for p in (tmp_path / "build").glob("*.so")) == [libs["ccl_exact"].name]
+    assert list(sc.build()) == ["subm_conv", "subm_conv_wgrad", "subm_conv_bf16",
+                                "subm_conv_wgrad_bf16"]
+    assert len(list((tmp_path / "build").glob("*.so"))) == 5
+
+
 def test_port_rulebook_feeds_reference():
     """The port's own rulebook gives the JAX conv result."""
     keys, nbr = _grid(2)
