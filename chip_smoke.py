@@ -22,13 +22,14 @@ source, in parallel), then:
      median of three windows of 10 launches);
   3. drives the flagship inference forward on the card (bench-cloud
      capacities and clustering overrides, seeded random weights): 5
-     warm-ups, then 20 timed requests (median and spread); it checks that
-     the kernel launched exactly 53 times per forward, that every capacity
-     counter is zero and that every output is finite; it profiles one
-     forward for its device time;
+     warm-ups, 30 forwards in a recording, which must launch the kernel
+     exactly 53 times each, then 30 timed requests with no recording on
+     (median and spread); it checks that every capacity counter is zero
+     and that every output is finite; it profiles one forward for its
+     device time;
      then it holds the kernel against its plain version on the hierarchy of
-     `entry()`'s cloud (default capacities) and runs `entry()` once as a
-     user would, counting its launches;
+     `entry()`'s cloud (default capacities) and runs `entry()` as a user
+     would, timing its first call and counting a second call's launches;
   4. runs the same forward, weights and inputs on the CPU (plain versions)
      and compares: integer outputs exactly, floats within stated
      tolerances;
@@ -38,30 +39,33 @@ source, in parallel), then:
      (V, Cin, Cout) of the backbone and the two proposal UNets, checks that
      the wgrad is bitwise repeatable, and times all six (CUDA events,
      median of 10) and the three kernels' device time (profiler); then
-     drives `train_step` (all three stages, Adam 1e-3): 3 warm-ups and 10
-     timed steps, checking the launch counts per step, zero counters,
-     finite losses, a moving loss and moving BN statistics; profiles one
-     step;
+     drives `train_step` (all three stages, Adam 1e-3): 3 warm-ups and 20
+     steps (the cell sparseunet-fp32.train-b8 times them), checking the
+     launch counts per step, zero counters, finite losses, a moving loss
+     and moving BN statistics; profiles one step (its idle share against
+     one unprofiled step);
   6. runs one train step at B = 2 on the card (four times) and on the CPU
      with the same weights, jitter and inputs: integer outputs exactly,
      losses, every parameter's gradient and the updated running statistics
      within stated tolerances, the gradients' allowing for what rounding
      alone does to them on the CPU;
   7. the inference API at the flagship config with the eval capacities of
-     train/trainer.py:452, seeded random weights, auto_capacity: predict on
-     the bench cloud and predict_with_masks on its ground-truth instances
-     (3 warm-ups, 3 timed requests each), predict_depth on a depth frame
-     rendered from the cloud (1 warm-up, 2 timed requests; FPS timed
-     alone); the kernel against its plain version on the hierarchy each of
-     the three builds; 53 forward launches per request; the time of each
-     request split into forward, selection (NMS), host scatter and RANSAC
-     (the program's `request:*` spans, host clock), with the device time
-     of the selection, RANSAC and FPS alone;
-     every counter printed (zero for the masks); each request again on the
-     CPU with the same weights and RANSAC samples: integers (sem_preds,
-     instances, kept proposals, classes, FPS indices, inlier masks, ok
-     flags, counters) exactly, NPCS and scores within 1e-4 and boxes within
-     1e-3 of scale; estimate_joint_angle once per branch on a rotated part;
+     train/trainer.py:452, seeded random weights, auto_capacity: predict
+     on the bench cloud (3 warm-ups, 5 recorded and 5 timed requests),
+     predict_with_masks on its ground-truth instances (one request: the
+     cell sparseunet-fp32.masks-b1 times them), predict_depth on a depth
+     frame rendered from the cloud (1 warm-up, 2 recorded and 2 timed
+     requests; FPS timed alone); the kernel against its plain version on
+     the hierarchy each of the three builds; 53 forward launches per
+     request; the time of each predict and predict_depth request split
+     into forward, selection (NMS), host scatter and RANSAC (the program's
+     `request:*` spans, host clock), with the device time of the
+     selection, RANSAC and FPS alone; every counter printed (zero for the
+     masks); each request again on the CPU with the same weights and
+     RANSAC samples: integers (sem_preds, instances, kept proposals,
+     classes, FPS indices, inlier masks, ok flags, counters) exactly, NPCS
+     and scores within 1e-4 and boxes within 1e-3 of scale;
+     estimate_joint_angle once per branch on a rotated part;
   8. prints the wall time of each phase, one {"kernels": [...]} JSON line
      (the fp32 kernels, then the bf16 ones), the nvidia-smi line and, last,
      the device line {"ok": true, "device": {...}}, after phase 15;
@@ -105,9 +109,10 @@ source, in parallel), then:
      dgrad and wgrad kernels against their plain versions at its own
      shapes, takes 2 warm-up steps (the first held against the one-process
      step: the ranks' summed losses and the running statistics within 1e-4
-     of magnitude, gradients within phase 6's allowance) and 2 timed
-     steps (77 / 76 / 77 launches per step, zero counters, finite losses;
-     ms per step, all-reduces per step, gradient bytes per step), checks
+     of magnitude, gradients within phase 6's allowance), 3 steps in a
+     recording (77 / 76 / 77 launches and the all-reduces per step) and 3
+     timed ones (ms per step; zero counters, finite losses, gradient bytes
+     per step), checks
      its parameters and buffers bitwise against rank 0's, and times the
      gradient all-reduce alone (CUDA events).  Then `trainer.fit` on both
      ranks for one epoch on phase 9's dataset cut to 23 train clouds: the
@@ -119,26 +124,26 @@ source, in parallel), then:
      (GAPartNetConfig(conv_compute_dtype="bfloat16")), the seventh slice's
      main path: the bf16 forward, dgrad and wgrad kernels
      (csrc/subm_conv_bf16.cu, csrc/subm_conv_wgrad_bf16.cu; SASS must hold
-     wgmma, HGMMA, checked in phase 1) against their plain versions at every
-     backbone shape of bench_cloud_setup and every training shape of
-     train_setup at bf16, each twice and bitwise equal, each call one kernel
-     launch or two where its plan splits taps or chunks rows (profiler: no
-     operand copy), timed (CUDA events, profiler device time, plain
-     version) beside their bound at the bf16 tensor-core peak and the HBM
-     rate, with the bytes the call reads (fp32 rows, no copy) printed
-     beside the bound's bf16 bytes; the bare forward, 5 warm-ups
-     and 20 timed (53 fwd_bf16 launches each and no fp32 subm-conv launch,
-     zero counters, finite outputs, a profile with the cuDNN bf16 rows),
-     printed beside phase 3's fp32 median, then 6 fp32 and 6 bf16
-     forwards in turns (the same weights; an A/B free of the host's drift
-     over the call); the same forward on the CPU
-     (integers exactly, sem_preds outside near-ties, floats within 1e-4 of
-     scale plus twice what two CPU probes with every BatchNorm output moved
-     by +-1 fp32 ulp move them: a bf16 network carries an fp32 rounding
-     difference on as flipped bf16 roundings); train_step at B = 8 (3
-     warm-ups, 10 timed, 77 / 76 / 77 bf16 launches and no fp32 one, zero
-     counters, moving losses and statistics, a profile), then 3 fp32 and
-     3 bf16 steps in turns; one card step, with PyTorch's deterministic
+     wgmma, HGMMA, checked in phase 1) against their plain versions at
+     every backbone shape of bench_cloud_setup and every training shape of
+     train_setup at bf16, each twice and bitwise equal, each call one
+     kernel launch or two where its plan splits taps or chunks rows
+     (profiler: no operand copy), timed (CUDA events, profiler device
+     time, plain version) beside their bound at the bf16 tensor-core peak
+     and the HBM rate, with the bytes the call reads (fp32 rows, no copy)
+     printed beside the bound's bf16 bytes; the bare forward, 5 warm-ups,
+     30 recorded (53 fwd_bf16 launches each and no fp32 subm-conv launch)
+     and 30 timed (zero counters, finite outputs, a profile with the cuDNN
+     bf16 rows), printed beside phase 3's fp32 median, then 10 fp32 and 10
+     bf16 forwards in turns (the same weights; an A/B free of the host's
+     drift over the call); the same forward on the CPU (integers exactly,
+     sem_preds outside near-ties, floats within 1e-4 of scale plus twice
+     what two CPU probes with every BatchNorm output moved by +-1 fp32 ulp
+     move them: a bf16 network carries an fp32 rounding difference on as
+     flipped bf16 roundings); train_step at B = 8 (3 warm-ups, 20 recorded
+     with 77 / 76 / 77 bf16 launches each and no fp32 one, 20 timed, zero
+     counters, moving losses and statistics, a profile), then 5 fp32 and 5
+     bf16 steps in turns; one card step, with PyTorch's deterministic
      scatter-adds, against the CPU step at B = 2 with phase 6's allowance,
      plus the probes' move for losses and running statistics, and for
      gradients BF16_KINK_FACTOR times the probes' move and one bf16 ulp of
@@ -147,30 +152,32 @@ source, in parallel), then:
      12a, exact clustering (GAPartNetConfig(clustering_impl="exact"), the
      reference's first-K ball query and list CCL, ops/ball_query.py and
      ops/ccl.py) on the bench cloud with the overrides, the proposal cap
-     and dense pool fitted to it: 3 warm-ups, then 10 exact forwards in
-     turns with 10 hash forwards (each exact forward: 53 forward launches,
-     2 ball queries, 2 CCLs of one kernel launch each, counted around it;
-     zero counters; the CCL iterations of one recorded forward, with no
-     host sync); the ball query of both sets alone (ms per call by CUDA
-     events, kernel ms and launches by the profiler, tiles) and the CCL
-     kernel of csrc/ccl_exact.cu (device ms by the profiler, call ms by
-     CUDA events, its bound, the plain loop's ms on the card; labels,
-     iterations and flag equal to the plain loop's on the card and the
-     CPU; also with every point valid: --exact-ops-only runs this alone and
-     prints the CCL's kernel line) and against the CPU (neighbour lists,
-     counts, labels exactly); the forward against the CPU (phase 4's rules); 2
+     and dense pool fitted to it: 3 warm-ups, then 20 exact forwards, each
+     in a recording of its own (53 forward launches, 2 ball queries, 2
+     CCLs of one kernel launch each, with no host sync; zero counters; the
+     CCL iterations of the last), then 20 exact forwards in turns with 20
+     hash forwards, timed with no recording on; the ball query of both
+     sets alone (ms per call by CUDA events, kernel ms and launches by the
+     profiler, tiles) and the CCL kernel of csrc/ccl_exact.cu (device ms
+     by the profiler, call ms by CUDA events, its bound, the plain loop's
+     ms on the card; labels, iterations and flag equal to the plain loop's
+     on the card and the CPU; also with every point valid:
+     --exact-ops-only runs this alone and prints the CCL's kernel line)
+     and against the CPU (neighbour lists, counts, labels exactly); the
+     forward against the CPU (phase 4's rules); 3
      GAPartNetInference.predict requests with exact clustering at the eval
      capacities against the CPU (phase 7's rules, counters equal to the
      CPU's); 12b, the PointNet backbone (GAPartNetConfig(backbone_type=
      "PointNet")) at phase 5's B = 8 batch and capacities: the forward,
      dgrad and wgrad kernels against their plain versions at the proposal
-     UNets' shapes of this step, 2 warm-ups and 5 timed train steps (24 /
-     24 / 24 launches per step, zero counters), a profiled step, one
-     deterministic B = 2 step against the CPU (phase 6's allowance, with
-     phase 11's terms for rounding-sensitive steps but the bf16 ulp: the
-     transformers' fc BatchNorms take E[x^2] - mean^2 over the B rows) and
-     one B = 1 eval forward against the CPU (phase 4's rules).  The kernel
-     line adds phase 12's launches to the fp32 kernels' counts;
+     UNets' shapes of this step, 2 warm-ups and 10 train steps (24 / 24 /
+     24 launches per step, zero counters; the cell pointnet-fp32.train-b8
+     times them), a profiled step, one deterministic B = 2 step against
+     the CPU (phase 6's allowance, with phase 11's terms for
+     rounding-sensitive steps but the bf16 ulp: the transformers' fc
+     BatchNorms take E[x^2] - mean^2 over the B rows) and one B = 1 eval
+     forward against the CPU (phase 4's rules).  The kernel line adds
+     phase 12's launches to the fp32 kernels' counts;
  13. dataset generation -> predict_depth -> train steps (the tenth slice's
      main path), at the JAX defaults (800 x 800 views, 1,000,000 surface
      samples, 20000 points, GAPartNetConfig()), in a temporary directory:
@@ -188,10 +195,11 @@ source, in parallel), then:
      through GAPartNetDataset with the native instance statistics
      (data/native_loader.py, built with g++) and held equal to the plain
      NumPy version's items; the forward, dgrad and wgrad kernels against
-     their plain versions at this batch's shapes; 1 warm-up and 3 train
-     steps at B = 4 (fp32, all three stages, phase 5's clustering
-     overrides) timed by utils/profiling.StepTimer around a synchronize,
-     77 / 76 / 77 launches per step, zero counters, finite losses; one
+     their plain versions at this batch's shapes; 1 warm-up, 3 train steps
+     at B = 4 (fp32, all three stages, phase 5's clustering overrides) in
+     a recording, 77 / 76 / 77 launches per step, then 3 timed by
+     utils/profiling.StepTimer around a synchronize, zero counters, finite
+     losses; one
      more step traced by utils/profiling.maybe_trace, whose Chrome trace
      must name the subm-conv kernels; device_memory_stats().  The kernel
      line adds phase 13's launches to the fp32 kernels' counts;
@@ -247,6 +255,17 @@ source, in parallel), then:
      batch, the val split's padded batch).  The kernel line adds phase
      15's launches to the bf16 kernels' counts.
 
+Launch counts come from `utils/profiling.record()` recordings around the
+checked calls (the subm-conv wrappers' `subm_conv_<kind>_launches`, the
+CCL's `ccl_exact_launches`), never around a kernel's timing loop, and the
+calls a phase times run apart from those it counts.  The exception is the
+trainer's steps and eval forwards under `Probe` (phases 9, 10b, 14 and
+15): each is timed inside a recording of its own, so its time carries the
+recorder's span bookkeeping and, where it clusters exactly (phase 14b's
+eval batches), the ball query's three on-device sums.  The
+roofline is portbench/work.py's `bound_s`; the card-vs-CPU rules of a
+request are `smoke_parity.py`'s.
+
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 
@@ -275,16 +294,14 @@ import time
 import unittest.mock
 from pathlib import Path
 
+from portbench.work import PEAK_FP32_ACCURATE_FLOPS, bound_s, subm_conv_work
+
 ROOT = Path(__file__).resolve().parent
-# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit.  The kernels
-# compute in 3xTF32 on the tensor cores (three TF32 products per fp32
-# product), so their bound takes a third of the TF32 peak; the CUDA-core
-# fp32 peak gives `bound_fp32_ms`, the bound of the earlier fp32-FMA kernels
-PEAK_TF32_FLOPS = 495e12
-PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
+# The roofline is portbench/work.py's (H100 SXM data sheet, 700 W; the fp32
+# kernels' 3xTF32 peak).  Two peaks it has no use for: the CUDA-core fp32
+# peak gives `bound_fp32_ms`, the bound of the earlier fp32-FMA kernels; the
+# bf16 kernels take one bf16 mma per product, at the dense bf16 peak
 PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES_PER_S = 3.35e12
-# the bf16 kernels: one bf16 mma per product, at the dense bf16 peak
 PEAK_BF16_FLOPS = 989e12
 # the kernels of each wrapper, as torch.profiler names them (the bf16 ones
 # also by their names before the wgmma redesign, so that --kernels-only
@@ -306,13 +323,58 @@ PROFILE_WINDOWS = 3
 WARMUP_REQUESTS = 5
 TIMED_REQUESTS = 30
 CONVS_PER_FORWARD = 53
-# the counters of ops/subm_conv.LAUNCHES: the fp32 kernels and the bf16 ones
+# the kinds of ops/subm_conv.LAUNCH_COUNTERS: the fp32 kernels and the bf16 ones
 KINDS = ("fwd", "dgrad", "wgrad", "fwd_bf16", "dgrad_bf16", "wgrad_bf16")
 
 
 def launch_counts(**per_kind) -> dict:
     """{kind: count} over KINDS, 0 for each kind not given."""
     return {k: per_kind.get(k, 0) for k in KINDS}
+
+
+def conv_launches(rec) -> dict:
+    """{kind: count} of the subm-conv launches in a profiling recording."""
+    from gapartnet_tpu_torch.ops.subm_conv import LAUNCH_COUNTERS
+
+    return {k: rec.counts.get(LAUNCH_COUNTERS[k], 0) for k in KINDS}
+
+
+def counted(call, n=1):
+    """`n` calls of `call()` in one recording, ending in a synchronize:
+    (their subm-conv launches, the recording, the last result).  The timed
+    calls run apart from it (`host_ms`), so that no timing carries the
+    recorder's bookkeeping or the device work of its counts."""
+    import torch
+
+    from gapartnet_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with profiling.record() as rec:
+        for _ in range(n):
+            out = call()
+        torch.cuda.synchronize()
+    return conv_launches(rec), rec, out
+
+
+def host_ms(call, n):
+    """`n` calls of `call()` with no recording on, each timed on the host
+    clock up to a synchronize: (ms per call, the last result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def roofline(flops, nbytes, peak_flops=PEAK_FP32_ACCURATE_FLOPS):
+    """(ms, what binds) of portbench/work.py's `bound_s`."""
+    binds = bound_s(flops, 0, peak_flops) >= bound_s(0, nbytes, peak_flops)
+    return bound_s(flops, nbytes, peak_flops) * 1e3, "operations" if binds else "bytes"
 
 
 TRAIN_BATCH = 8
@@ -348,10 +410,6 @@ PERTURB = 1e-6
 PROBES = ((11, 1.0), (11, -1.0), (12, 1.0), (12, -1.0))
 CARD_RUNS = 4
 STATS_RTOL = 1e-4
-# card vs CPU forward: fp32 through ~60 conv layers, sums in other orders
-FORWARD_RTOL = 1e-4
-# dense proposal cells may move by one cell on at most this share of entries
-CELL_FLIP_SHARE = 1e-3
 # the inference API (phase 7): requests per phase, the stages of a request
 PREDICT_WARMUPS = 3
 PREDICT_REQUESTS = 5
@@ -366,11 +424,6 @@ DEPTH_HW = (480, 640)
 DEPTH_K = ((700.0, 0.0, 320.0), (0.0, 700.0, 240.0), (0.0, 0.0, 1.0))
 DEPTH_OFFSET = 3.0
 DEPTH_SPLAT = 3
-# card vs CPU requests: NPCS and scores as the forward's floats; the ok
-# boxes, scales, rotations and translations within 1e-3 of scale (a refit
-# sums up to thousands of rows and takes a 3x3 SVD, cuSOLVER against LAPACK)
-NPCS_RTOL = FORWARD_RTOL
-BOX_RTOL = 1e-3
 # the trainer (phase 9): the dataset, the overrides of configs/gapartnet.yaml;
 # 6 steps per epoch, so that epoch 1 times 5 steps after its first
 FIT_BATCH = TRAIN_BATCH                            # the reference's 64 over 8 cards
@@ -420,7 +473,6 @@ DP_FIT_OVERRIDES = (
 DP_TIMEOUT_S = 600
 # bf16 conv compute (phase 11), bench.py's configuration: the same 53 / 77
 # / 76 / 77 convs on the bf16 kernels and none on the fp32 ones
-BF16_FORWARD_LAUNCHES = launch_counts(fwd_bf16=CONVS_PER_FORWARD)
 BF16_LAUNCHES_PER_STEP = launch_counts(fwd_bf16=77, dgrad_bf16=76, wgrad_bf16=77)
 # bf16 kernel vs plain: the forward's fp32 sums of exact bf16 products in
 # another order, as the fp32 kernels' (KERNEL_RTOL); the dgrad and wgrad
@@ -529,11 +581,8 @@ def sass_counts(lib: Path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            kernel = re.search(r"(subm_conv_fwd_kernel|subm_conv_wgrad_kernel|sum_splits_kernel|"
-                               r"sum_chunks_kernel|subm_conv_bf16_wgmma_kernel|"
-                               r"subm_conv_wgrad_bf16_wgmma_kernel|subm_conv_bf16_fwd_kernel|"
-                               r"subm_conv_wgrad_bf16_kernel|sum_splits_bf16_kernel|"
-                               r"sum_chunks_bf16_kernel)", m.group(1))
+            kernel = re.search("(" + "|".join(sorted({n for ns in KERNEL_NAMES.values() for n in ns},
+                                                     key=len, reverse=True)) + ")", m.group(1))
             name = (kernel.group(1) if kernel else m.group(1)) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", m.group(1))) + ">"
             current = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
@@ -554,6 +603,15 @@ def backbone_conv_shapes(channels, stem_in=6):
         if li < last:
             shapes.append((li, 2 * c, c, 1))
     return shapes
+
+
+def hierarchy_of(cfg, batch):
+    """The backbone's grid hierarchy of `batch`, built as the forward builds it."""
+    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+
+    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg)
+    return build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
 
 
 def phase_kernels(cfg, hierarchy, device, tag="kernel", timed=True):
@@ -590,13 +648,12 @@ def phase_kernels(cfg, hierarchy, device, tag="kernel", timed=True):
         ms = cuda_ms(lambda: subm_conv(feats, nbr, w), TIMED_LAUNCHES)
         dev_ms = device_ms(lambda: subm_conv(feats, nbr, w), TIMED_LAUNCHES, KERNEL_NAMES["fwd"])
         plain_ms = cuda_ms(lambda: subm_conv_reference(feats, nbr, w), TIMED_LAUNCHES)
-        flops = 2 * cin * cout * pairs
-        nbytes = 4 * (b * v * cin + 27 * b * v + 27 * cin * cout + b * v * cout)
-        bound_ms, _ = _bound(flops, nbytes)
+        flops, nbytes = subm_conv_work(cin, cout, b * v, pairs)
+        bound_ms, _ = roofline(flops, nbytes)
         rows.append(dict(
             level=li, cin=cin, cout=cout, V=v, pairs=pairs, per_forward=per_fwd,
             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_fp32_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS)[0], flops=flops, bytes=nbytes,
+            bound_fp32_ms=roofline(flops, nbytes, PEAK_FP32_FLOPS)[0], flops=flops, bytes=nbytes,
         ))
         print(f"[{tag}] level {li} {cin:>3}->{cout:<3} V={v:<6} pairs={pairs:<7} "
               f"x{per_fwd}/fwd  call {ms:.4f} ms  device {_fmt(dev_ms)} ms  bound "
@@ -616,28 +673,25 @@ def phase_forward(cfg, batch, cluster_sem, cluster_off, smi, kind="fwd", tag="fo
     """The flagship forward on the card; `kind` the counter its 53 convs
     must launch ("fwd", or "fwd_bf16" at bf16 compute) and no other.
 
-    Returns (model, last output, kernel launches counted over the timed
-    requests, ms per request)."""
+    Returns (model, last output, kernel launches counted over
+    TIMED_REQUESTS recorded forwards, ms per request over as many
+    unrecorded ones)."""
     import torch
 
     from gapartnet_tpu_torch.entry import make_model
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
 
     model = make_model(cfg, "cuda", seed=0)
+
+    def forward():
+        return run_forward(model, batch, cluster_sem, cluster_off)
+
     for _ in range(WARMUP_REQUESTS):
-        run_forward(model, batch, cluster_sem, cluster_off)
-    torch.cuda.synchronize()
-    reset_launches()
-    times = []
-    for _ in range(TIMED_REQUESTS):
-        t0 = time.perf_counter()
-        out = run_forward(model, batch, cluster_sem, cluster_off)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = LAUNCHES[kind]
-    if LAUNCHES != launch_counts(**{kind: CONVS_PER_FORWARD * TIMED_REQUESTS}):
+        forward()
+    got, _, _ = counted(forward, TIMED_REQUESTS)
+    times, out = host_ms(forward, TIMED_REQUESTS)
+    if got != launch_counts(**{kind: CONVS_PER_FORWARD * TIMED_REQUESTS}):
         raise AssertionError(
-            f"subm_conv launched {LAUNCHES} in {TIMED_REQUESTS} forwards, "
+            f"subm_conv launched {got} in {TIMED_REQUESTS} forwards, "
             f"expected {CONVS_PER_FORWARD} {kind} launches per forward and no other"
         )
     counters = {k: int(v.sum()) for k, v in out.counters.items()}
@@ -653,8 +707,8 @@ def phase_forward(cfg, batch, cluster_sem, cluster_off, smi, kind="fwd", tag="fo
           f"median {statistics.median(times):.3f}, p10 {deciles[0]:.3f}, "
           f"p90 {deciles[-1]:.3f}, min {min(times):.3f}, max {max(times):.3f}  ({smi})")
     print(f"[{tag}] proposals {out.proposals.num_proposals.tolist()}, "
-          f"subm_conv {kind} launches {launches} ({launches // TIMED_REQUESTS} per forward)")
-    return model, out, launches, times
+          f"subm_conv {kind} launches {got[kind]} ({got[kind] // TIMED_REQUESTS} per forward)")
+    return model, out, got[kind], times
 
 
 def phase_entry():
@@ -665,40 +719,35 @@ def phase_entry():
 
     from gapartnet_tpu_torch.config import GAPartNetConfig
     from gapartnet_tpu_torch.entry import entry
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
 
     fn, (batch,) = entry()
     cfg = GAPartNetConfig()
-    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg)
-    hierarchy = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
+    hierarchy = hierarchy_of(cfg, batch)
     print(f"[entry] capacities {cfg.input_capacities()}, extent {cfg.input_grid_extent}, "
           f"voxels per level {[int(lv.num_voxels[0]) for lv in hierarchy.levels]}")
     rows = phase_kernels(cfg, hierarchy, "cuda", tag="entry kernel", timed=False)
-    reset_launches()
-    t0 = time.perf_counter()
-    outs = fn(batch)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    if LAUNCHES != launch_counts(fwd=CONVS_PER_FORWARD):
-        raise AssertionError(f"entry(): subm_conv launched {LAUNCHES}")
+    (ms,), outs = host_ms(lambda: fn(batch), 1)
+    got, _, _ = counted(lambda: fn(batch))
+    if got != launch_counts(fwd=CONVS_PER_FORWARD):
+        raise AssertionError(f"entry(): subm_conv launched {got}")
     if not all(bool(torch.isfinite(t.float()).all()) for t in outs):
         raise AssertionError("entry(): non-finite outputs")
     print(f"[entry] entry() forward on a synthetic cloud: {ms:.1f} ms (first call), "
-          f"{LAUNCHES['fwd']} subm_conv launches, "
+          f"{got['fwd']} subm_conv launches (the second call), "
           f"outputs {[tuple(t.shape) for t in outs]}")
     return rows
 
 
-def phase_profile(run, request_ms, tag="profile", what="one forward"):
+def phase_profile(run, request_ms=None, tag="profile", what="one forward"):
     """Device time by kernel over one `run()` (torch.profiler, CUDA activity
     only).  The idle share is taken against `request_ms`, the median wall of
-    the unprofiled runs."""
+    the unprofiled runs, or without it against one unprofiled `run()`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if request_ms is None:
+        (request_ms,), _ = host_ms(run, 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -712,28 +761,12 @@ def phase_profile(run, request_ms, tag="profile", what="one forward"):
         print(f"[{tag}] device time not measured (profiler saw no kernels)")
         return
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    launches = sum(e.count for e in events)
-    print(f"[{tag}] {what}: kernel time {busy_ms:.3f} ms in {launches} kernel "
-          f"launches; idle share {1 - busy_ms / request_ms:.3f} of the median "
-          f"unprofiled run ({request_ms:.3f} ms); profiled wall {wall_ms:.3f} ms")
+    kernels = sum(e.count for e in events)
+    print(f"[{tag}] {what}: kernel time {busy_ms:.3f} ms in {kernels} kernel "
+          f"launches; idle share {1 - busy_ms / request_ms:.3f} of the unprofiled "
+          f"run ({request_ms:.3f} ms); profiled wall {wall_ms:.3f} ms")
     for e in events[:15]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:90]}")
-
-
-def _check_close(name, got, want, mask=None, rtol=FORWARD_RTOL, allow=0.0):
-    """max|got - want| <= rtol * max|want| + allow (over `mask`)."""
-    got, want = got.cpu(), want.cpu()
-    if mask is not None:
-        got, want = got[mask], want[mask]
-    if got.numel() == 0:
-        print(f"[compare] {name}: nothing to compare")
-        return
-    err = float((got - want).abs().max())
-    scale = max(float(want.abs().max()), 1e-30)
-    print(f"[compare] {name}: max|d| {err:.3e}, max|cpu| {scale:.3e}, n={got.numel()}"
-          + (f", probe allowance {allow:.3e}" if allow else ""))
-    if not err <= rtol * scale + allow:
-        raise AssertionError(f"{name}: card vs CPU max|d| {err} > {rtol} * {scale} + {allow}")
 
 
 def _probe_allow(name, probes, want, mask=None):
@@ -747,14 +780,6 @@ def _probe_allow(name, probes, want, mask=None):
     return KINK_FACTOR * max(moves, default=0.0)
 
 
-def _check_equal(name, got, want):
-    import torch
-
-    if not torch.equal(got.cpu(), want.cpu()):
-        n = int((got.cpu() != want.cpu()).sum())
-        raise AssertionError(f"{name}: card and CPU differ at {n} entries")
-
-
 def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu, probes=()):
     """The same forward on the CPU; integers exact, floats within tolerance.
     With `probes` (seeds; the bf16 run) the CPU forward also runs once per
@@ -765,12 +790,12 @@ def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu, prob
     import torch
 
     from gapartnet_tpu_torch.entry import make_model
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+    from gapartnet_tpu_torch.models.norm import bn_ulp_probe
+    import smoke_parity as parity
 
     model_cpu = make_model(cfg, "cpu", seed=0)
     for (k, a), b in zip(model_gpu.state_dict().items(), model_cpu.state_dict().values()):
-        _check_equal(f"weight {k}", a, b)
+        parity.check_equal(f"weight {k}", a, b)
     bc, sc, oc = batch.to("cpu"), cluster_sem.cpu(), cluster_off.cpu()
     t0 = time.perf_counter()
     out_cpu = run_forward(model_cpu, bc, sc, oc)
@@ -782,23 +807,9 @@ def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu, prob
     if probes:
         print(f"[compare] {len(probes)} CPU probe forwards (BatchNorm outputs +-1 ulp) done")
 
-    grids = []
-    for b in (batch, bc):
-        keys, _, nvox, pcid = prepare_input_grid(b.points, b.point_mask, cfg)
-        hier = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
-        grids.append((keys, nvox, pcid, hier))
-    (kg, ng, pg, hg), (kc, nc, pc, hc) = grids
-    _check_equal("voxel keys", kg, kc)
-    _check_equal("num voxels", ng, nc)
-    _check_equal("pc_voxel_id", pg, pc)
-    for li, (lg, lc) in enumerate(zip(hg.levels, hc.levels)):
-        for f in lg._fields:
-            _check_equal(f"level {li} {f}", getattr(lg, f), getattr(lc, f))
-    for li, (dg, dc) in enumerate(zip(hg.downsamples, hc.downsamples)):
-        for f in dg._fields:
-            _check_equal(f"downsample {li} {f}", getattr(dg, f), getattr(dc, f))
+    _check_same_grid("backbone", cfg, batch, bc)
     for f in out_gpu.proposals._fields:
-        _check_equal(f"proposals.{f}", getattr(out_gpu.proposals, f), getattr(out_cpu.proposals, f))
+        parity.check_equal(f"proposals.{f}", getattr(out_gpu.proposals, f), getattr(out_cpu.proposals, f))
     print("[compare] voxel keys, pc_voxel_id, rulebooks, downsample maps, proposals: identical")
 
     # dense entry cells: a flip moves an entry by one cell within its grid
@@ -809,8 +820,8 @@ def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu, prob
     n_valid = int((scp >= 0).sum())
     n_diff = int(diff.sum())
     print(f"[compare] dense entry cells differing: {n_diff} of {n_valid}")
-    if n_diff > CELL_FLIP_SHARE * n_valid:
-        raise AssertionError(f"{n_diff} dense entry cells differ (> {CELL_FLIP_SHARE:.1%})")
+    if n_diff > parity.CELL_FLIP_SHARE * n_valid:
+        raise AssertionError(f"{n_diff} dense entry cells differ (> {parity.CELL_FLIP_SHARE:.1%})")
     if n_diff:
         a, b = sg[diff], scp[diff]
         if not bool(((a >= 0) & (b >= 0) & (a // s3 == b // s3)).all()):
@@ -827,16 +838,16 @@ def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu, prob
     prop_ok[bb, pid[bb, ee].long()] = False
 
     sem_allow = _probe_allow("sem_logits", outs_p, out_cpu)
-    _check_close("sem_logits", out_gpu.sem_logits, out_cpu.sem_logits, allow=sem_allow)
-    _check_close("offset_preds", out_gpu.offset_preds, out_cpu.offset_preds,
-                 allow=_probe_allow("offset_preds", outs_p, out_cpu))
+    parity.check_close("sem_logits", out_gpu.sem_logits, out_cpu.sem_logits, allow=sem_allow)
+    parity.check_close("offset_preds", out_gpu.offset_preds, out_cpu.offset_preds,
+                       allow=_probe_allow("offset_preds", outs_p, out_cpu))
     # argmax may flip only at near-ties of the two largest logits
     lc = out_cpu.sem_logits.cpu()
     flip = out_gpu.sem_preds.cpu() != out_cpu.sem_preds.cpu()
     print(f"[compare] sem_preds differing: {int(flip.sum())} of {flip.numel()}")
     if flip.any():
         top2 = lc[flip].topk(2, dim=-1).values
-        tol = FORWARD_RTOL * float(lc.abs().max()) + sem_allow
+        tol = parity.FORWARD_RTOL * float(lc.abs().max()) + sem_allow
         if not bool(((top2[:, 0] - top2[:, 1]) <= 2 * tol).all()):
             raise AssertionError("sem_preds differ at a point that is not a near-tie")
     # a proposal's class is the sem pred at its representative point
@@ -850,10 +861,10 @@ def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu, prob
     # entries are left out of the comparison and of the probes' allowance
     for p in outs_p:
         prop_ok &= p.proposal_sem.cpu() == out_cpu.proposal_sem.cpu()
-    _check_close("score_logits", out_gpu.score_logits, out_cpu.score_logits, prop_ok,
-                 allow=_probe_allow("score_logits", outs_p, out_cpu, prop_ok))
-    _check_close("score_preds", out_gpu.score_preds, out_cpu.score_preds, prop_ok,
-                 allow=_probe_allow("score_preds", outs_p, out_cpu, prop_ok))
+    parity.check_close("score_logits", out_gpu.score_logits, out_cpu.score_logits, prop_ok,
+                       allow=_probe_allow("score_logits", outs_p, out_cpu, prop_ok))
+    parity.check_close("score_preds", out_gpu.score_preds, out_cpu.score_preds, prop_ok,
+                       allow=_probe_allow("score_preds", outs_p, out_cpu, prop_ok))
     ep = out_cpu.proposals.entry_point.cpu().long()
     bidx = torch.arange(ep.shape[0])[:, None]
     entry_ok = out_cpu.proposals.entry_mask.cpu() & ~flip[bidx, ep]
@@ -865,15 +876,8 @@ def phase_compare(cfg, batch, cluster_sem, cluster_off, model_gpu, out_gpu, prob
               f"{int((out_cpu.proposals.proposal_mask.cpu() & ~prop_ok).sum())} proposals, "
               f"{int((out_cpu.proposals.entry_mask.cpu() & ~entry_ok).sum())} entries (with the "
               f"card's)")
-    _check_close("npcs_preds", out_gpu.npcs_preds, out_cpu.npcs_preds, entry_ok,
-                 allow=_probe_allow("npcs_preds", outs_p, out_cpu, entry_ok))
-
-
-def _bound(flops, nbytes, peak_flops=PEAK_TF32X3_FLOPS):
-    """(ms, what bounds it): the larger of the operations at `peak_flops`
-    and the bytes at the HBM rate."""
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    parity.check_close("npcs_preds", out_gpu.npcs_preds, out_cpu.npcs_preds, entry_ok,
+                       allow=_probe_allow("npcs_preds", outs_p, out_cpu, entry_ok))
 
 
 def _weighted(rows, key, weight):
@@ -928,12 +932,11 @@ def phase_train_kernels(shapes, tag="train kernel", timed=True):
                       lambda: sc.subm_conv_wgrad_reference(x, nbr, g), WGRAD_RTOL),
         }
         pairs = int((nbr >= 0).sum())
-        flops = 2 * cin * cout * pairs
-        nbytes = 4 * (b * v * cin + 27 * b * v + 27 * cin * cout + b * v * cout)
-        bound_ms, bound_by = _bound(flops, nbytes)
+        flops, nbytes = subm_conv_work(cin, cout, b * v, pairs)
+        bound_ms, bound_by = roofline(flops, nbytes)
         row = dict(net=sh["net"], level=sh["level"], cin=cin, cout=cout, B=b, V=v, pairs=pairs,
                    per_step=sh["per_step"], flops=flops, bytes=nbytes, bound_ms=bound_ms,
-                   bound_by=bound_by, bound_fp32_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS)[0])
+                   bound_by=bound_by, bound_fp32_ms=roofline(flops, nbytes, PEAK_FP32_FLOPS)[0])
         for kind, (kernel, plain, rtol) in calls.items():
             got = kernel()
             ref = plain()
@@ -988,14 +991,25 @@ def proposal_geometry(cfg, batch, cluster_sem, cluster_off):
     return hier
 
 
-def phase_train(cfg, batch, cluster_sem, cluster_off, smi, per_step=LAUNCHES_PER_STEP,
-                tag="train", warmups=WARMUP_STEPS, steps=TIMED_STEPS):
-    """train_step on the card: `warmups` steps, then `steps` timed steps
-    with the launch counts read around them (`per_step` launches of each
-    kind per step).  Returns (step function, launches, ms per step)."""
+def _check_steps(tag, history):
+    """Every metric of every train step in `history` finite, every counter 0."""
     import torch
 
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        nonzero = {k: float(v) for k, v in m.items() if k.startswith("counters/") and float(v)}
+        if bad or nonzero:
+            raise AssertionError(f"{tag}step {i + 1}: non-finite {bad}, capacity counters {nonzero}")
+
+
+def phase_train(cfg, batch, cluster_sem, cluster_off, smi, per_step=LAUNCHES_PER_STEP,
+                tag="train", warmups=WARMUP_STEPS, steps=TIMED_STEPS, timed=True):
+    """train_step on the card: `warmups` steps, then `steps` steps with the
+    launch counts read from a recording around them (`per_step` launches of
+    each kind per step), and where `timed` `steps` more, unrecorded, each
+    timed.  Returns (step function, launches, ms per step or None)."""
+    import torch
+
     from gapartnet_tpu_torch.train.loop import adam, train_step
 
     model = _train_model(cfg)
@@ -1008,36 +1022,24 @@ def phase_train(cfg, batch, cluster_sem, cluster_off, smi, per_step=LAUNCHES_PER
                           cluster_sem_override=cluster_sem, cluster_offset_override=cluster_off)
 
     history = [step() for _ in range(warmups)]
-    torch.cuda.synchronize()
-    reset_launches()
-    times = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        history.append(step())
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(LAUNCHES)
+    launches, _, _ = counted(lambda: history.append(step()), steps)
+    times = host_ms(lambda: history.append(step()), steps)[0] if timed else None
     want = {k: n * steps for k, n in per_step.items()}
     if launches != want:
         raise AssertionError(f"train steps launched {launches}, expected {want}")
-    for i, m in enumerate(history):
-        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
-        if bad:
-            raise AssertionError(f"step {i + 1}: non-finite {bad}")
-        nonzero = {k: float(v) for k, v in m.items() if k.startswith("counters/") and float(v) != 0}
-        if nonzero:
-            raise AssertionError(f"step {i + 1}: capacity counters nonzero: {nonzero}")
+    _check_steps("", history)
     first, last = float(history[0]["loss/total_loss"]), float(history[-1]["loss/total_loss"])
     if first == last:
         raise AssertionError(f"the loss did not move over {len(history)} steps ({first})")
     moved = sum(not torch.equal(v, model.state_dict()[k]) for k, v in stats0.items())
     if moved != len(stats0):
         raise AssertionError(f"only {moved} of {len(stats0)} BN running statistics moved")
-    deciles = statistics.quantiles(times, n=10)
-    med = statistics.median(times)
-    print(f"[{tag}] B={batch.batch_size} ms per step over {steps} steps: median {med:.3f}, "
-          f"p10 {deciles[0]:.3f}, p90 {deciles[-1]:.3f}, min {min(times):.3f}, "
-          f"max {max(times):.3f}; {batch.batch_size / med * 1e3:.2f} clouds/s  ({smi})")
+    if timed:
+        deciles = statistics.quantiles(times, n=10)
+        med = statistics.median(times)
+        print(f"[{tag}] B={batch.batch_size} ms per step over {steps} steps: median {med:.3f}, "
+              f"p10 {deciles[0]:.3f}, p90 {deciles[-1]:.3f}, min {min(times):.3f}, "
+              f"max {max(times):.3f}; {batch.batch_size / med * 1e3:.2f} clouds/s  ({smi})")
     print(f"[{tag}] launches in {steps} steps {launches} "
           f"(per step {dict((k, v // steps) for k, v in launches.items())}); "
           f"all counters 0; {moved} BN running statistics moved")
@@ -1104,24 +1106,45 @@ def deterministic_ops():
         torch.use_deterministic_algorithms(before)
 
 
+def _check_same_hierarchy(name, a, b):
+    """Two grid hierarchies equal, level by level and map by map."""
+    import smoke_parity as parity
+
+    for li, (la, lb) in enumerate(zip(a.levels, b.levels)):
+        for f in la._fields:
+            parity.check_equal(f"{name} level {li} {f}", getattr(la, f), getattr(lb, f))
+    for li, (da, db) in enumerate(zip(a.downsamples, b.downsamples)):
+        for f in da._fields:
+            parity.check_equal(f"{name} downsample {li} {f}", getattr(da, f), getattr(db, f))
+
+
+def _check_same_grid(name, cfg, card_batch, cpu_batch):
+    """The input grids of two batches equal: voxel keys and counts, the
+    point-voxel ids, and the hierarchy built on them."""
+    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
+    import smoke_parity as parity
+
+    (kg, _, ng, pg), (kc, _, nc, pc) = (prepare_input_grid(b.points, b.point_mask, cfg)
+                                        for b in (card_batch, cpu_batch))
+    parity.check_equal("voxel keys", kg, kc)
+    parity.check_equal("num voxels", ng, nc)
+    parity.check_equal("pc_voxel_id", pg, pc)
+    _check_same_hierarchy(name, hierarchy_of(cfg, card_batch), hierarchy_of(cfg, cpu_batch))
+
+
 def _check_same_graph(name, og, oc, fields=("entry_voxel_id", "sem_preds", "proposal_sem",
                                             "npcs_valid", "ious")):
     """The integer outputs of two train passes that decide what the loss
     sums: proposal grid, proposals, the given fields, counters."""
-    a, b = og.proposal_grid, oc.proposal_grid
-    for li, (lg, lc) in enumerate(zip(a.levels, b.levels)):
-        for f in lg._fields:
-            _check_equal(f"{name}: proposal grid level {li} {f}", getattr(lg, f), getattr(lc, f))
-    for li, (dg, dc) in enumerate(zip(a.downsamples, b.downsamples)):
-        for f in dg._fields:
-            _check_equal(f"{name}: proposal grid downsample {li} {f}", getattr(dg, f),
-                         getattr(dc, f))
+    import smoke_parity as parity
+
+    _check_same_hierarchy(f"{name}: proposal grid", og.proposal_grid, oc.proposal_grid)
     for f in og.proposals._fields:
-        _check_equal(f"{name}: proposals.{f}", getattr(og.proposals, f), getattr(oc.proposals, f))
+        parity.check_equal(f"{name}: proposals.{f}", getattr(og.proposals, f), getattr(oc.proposals, f))
     for f in fields:
-        _check_equal(f"{name}: {f}", getattr(og, f), getattr(oc, f))
+        parity.check_equal(f"{name}: {f}", getattr(og, f), getattr(oc, f))
     for k, v in oc.counters.items():
-        _check_equal(f"{name}: counter {k}", og.counters[k], v)
+        parity.check_equal(f"{name}: counter {k}", og.counters[k], v)
 
 
 def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUNS, tag="train compare",
@@ -1153,8 +1176,7 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
     probes move it by 2-4% (on an H100 80GB HBM3 at 700 W)."""
     import torch
 
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
+    import smoke_parity as parity
 
     jitter = torch.rand((2, 3), generator=torch.Generator().manual_seed(7))
     sub, sem, off = _clouds(batch, 0, n), cluster_sem[:n], cluster_off[:n]
@@ -1182,27 +1204,13 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
         for r, (mg, _, _) in enumerate(cards[1:], 2):
             now = {**mg.state_dict(), **{"grad " + k: p.grad for k, p in mg.named_parameters()}}
             for k, v in first.items():
-                _check_equal(f"deterministic card step {r}: {k}", now[k], v)
+                parity.check_equal(f"deterministic card step {r}: {k}", now[k], v)
         print(f"[{tag}] {runs} deterministic card steps: every gradient and running "
               "statistic bitwise equal")
     probes = [run("cpu", f"cpu step, parameters moved by {sign * PERTURB:+g} (noise seed {seed})",
                   (seed, sign)) for seed, sign in PROBES]
 
-    grids = []
-    for b in (cards[0][2], bc):
-        keys, _, nvox, pcid = prepare_input_grid(b.points, b.point_mask, cfg)
-        hier = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
-        grids.append((keys, nvox, pcid, hier))
-    (kg, ng, pg, hg), (kc, nc, pc, hc) = grids
-    _check_equal("voxel keys", kg, kc)
-    _check_equal("num voxels", ng, nc)
-    _check_equal("pc_voxel_id", pg, pc)
-    for li, (lg, lc) in enumerate(zip(hg.levels, hc.levels)):
-        for f in lg._fields:
-            _check_equal(f"backbone level {li} {f}", getattr(lg, f), getattr(lc, f))
-    for li, (dg, dc) in enumerate(zip(hg.downsamples, hc.downsamples)):
-        for f in dg._fields:
-            _check_equal(f"backbone downsample {li} {f}", getattr(dg, f), getattr(dc, f))
+    _check_same_grid("backbone", cfg, cards[0][2], bc)
     reduced = ("entry_voxel_id", "proposal_sem", "ious")
     lc = oc.sem_logits.detach().cpu()
     sem_tol = LOSS_RTOL * float(lc.abs().max()) + max(
@@ -1211,7 +1219,7 @@ def phase_train_compare(cfg, batch, cluster_sem, cluster_off, n=2, runs=CARD_RUN
         _check_same_graph(f"card step {r + 1}", og, oc, fields=reduced if sensitive else (
             "entry_voxel_id", "sem_preds", "proposal_sem", "npcs_valid", "ious"))
         if sensitive:
-            _near_ties(f"card step {r + 1}", og.sem_preds.cpu(), lc, sem_tol)
+            parity.near_ties(f"card step {r + 1}", og.sem_preds.cpu(), lc, sem_tol)
     print(f"[{tag}] voxel keys, rulebooks, downsample maps; in all {runs} card steps: "
           "proposals, proposal-grid keys and rulebooks, entry_voxel_id, proposal classes, ious"
           + (" identical to the CPU's; sem_preds equal outside near-ties" if sensitive else
@@ -1320,13 +1328,14 @@ def phase_visu_draws(draws, smi):
     for a trained `last`, then the bench cloud turned about z by 2 pi i /
     `draws`, i < `draws`, through GAPartNetInference(ckpt_path=last) at the
     default capacities (as visu builds it) on the card and on the CPU, each
-    held to compare_requests.  Prints how many needed the clustering
+    held to parity.compare_requests.  Prints how many needed the clustering
     replay."""
     import tempfile
 
     import numpy as np
 
     from gapartnet_tpu_torch.infer import api
+    import smoke_parity as parity
 
     base, _ = bench_points()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_draws_") as tmp:
@@ -1341,7 +1350,7 @@ def phase_visu_draws(draws, smi):
                        np.float32)
         pts = base.copy()
         pts[:, :3] = base[:, :3] @ rot.T
-        how.append(compare_requests(f"visu draw {i}", card._request(pts), cpu, pts))
+        how.append(parity.compare_requests(f"visu draw {i}", card._request(pts), cpu, pts))
     print(f"[visu draws] {draws} rotated bench clouds pass card vs CPU: "
           + ", ".join(f"{how.count(h)} {h}" for h in ("exact", "near-ties", "replay"))
           + f"  ({smi})")
@@ -1351,11 +1360,12 @@ def inference_pair(cfg):
     """GAPartNetInference on the card and on the CPU with the same seed-0
     weights (checked equal) and auto_capacity, as a user would build it."""
     from gapartnet_tpu_torch.infer.api import GAPartNetInference
+    import smoke_parity as parity
 
     card = GAPartNetInference(cfg, seed=0, auto_capacity=True, device="cuda")
     cpu = GAPartNetInference(cfg, seed=0, auto_capacity=True, device="cpu")
     for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):
-        _check_equal(f"weight {k}", a, b)
+        parity.check_equal(f"weight {k}", a, b)
     return card, cpu
 
 
@@ -1364,13 +1374,10 @@ def phase_api_kernels(tag, infer, pts):
     hierarchy that a request of `infer` builds for `pts` (its fitted
     capacities and extent, built as the forward builds it).  Returns the
     largest max|d|."""
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
 
     cfg = infer.cfg
     batch = infer._wrap_points(pts)
-    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg)
-    hierarchy = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
+    hierarchy = hierarchy_of(cfg, batch)
     print(f"[{tag} kernel] capacities {cfg.input_capacities()}, extent {cfg.input_grid_extent}, "
           f"voxels per level {[int(lv.num_voxels[0]) for lv in hierarchy.levels]}")
     rows = phase_kernels(cfg, hierarchy, "cuda", tag=f"{tag} kernel", timed=False)
@@ -1387,22 +1394,19 @@ def bench_points():
     return np.concatenate([d["xyz"], d["rgb"]], axis=1).astype(np.float32), d["instance_labels"]
 
 
-def timed_request(infer, pts, proposals=None):
+def timed_request(tag, infer, pts, proposals=None):
     """One request through GAPartNetInference's stages on the card (the
     stages of predict; with `proposals`, of predict_with_masks) under the
-    program's recorder.  Returns (Request, {stage: ms}): each stage's
+    program's recorder, which must count 53 forward launches and no other.
+    Returns (Request, {stage: ms}, its subm-conv launches): each stage's
     `request:<stage>` span, host clock; the last stage ends in its copy of
     the boxes, which waits for the card."""
-    import torch
-
-    from gapartnet_tpu_torch.utils import profiling
-
-    torch.cuda.synchronize()
-    with profiling.record() as rec:
-        req = infer._request(pts, proposals)
-        torch.cuda.synchronize()
+    launches, rec, req = counted(lambda: infer._request(pts, proposals))
+    if launches != EVAL_FORWARD_LAUNCHES:
+        raise AssertionError(f"{tag}: a request launched {launches}, expected "
+                             f"{CONVS_PER_FORWARD} forward launches")
     spans = rec.summary()
-    return req, {stage: spans[f"request:{stage}"]["ms"] for stage in STAGES}
+    return req, {stage: spans[f"request:{stage}"]["ms"] for stage in STAGES}, launches
 
 
 def busy_ms(fn):
@@ -1427,25 +1431,14 @@ def _quantiles(times):
 
 
 def run_requests(tag, call, requests, warmups, smi):
-    """`call()` warmups times, then `requests` timed calls (host clock,
-    ending in a synchronize) with the subm-conv counts set to 0 just before
-    and read just after; checks 53 forward launches per request.  Returns
-    (ms per request, launches)."""
-    import torch
-
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
-
+    """`call()` warmups times, then `requests` calls in a recording, which
+    must launch 53 forward convs each, then `requests` timed calls (host
+    clock, ending in a synchronize, no recording on).  Returns (ms per
+    request, launches)."""
     for _ in range(warmups):
         call()
-    torch.cuda.synchronize()
-    reset_launches()
-    times = []
-    for _ in range(requests):
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(LAUNCHES)
+    launches, _, _ = counted(call, requests)
+    times, _ = host_ms(call, requests)
     if launches != launch_counts(fwd=CONVS_PER_FORWARD * requests):
         raise AssertionError(f"{tag}: subm_conv launched {launches} in {requests} requests, "
                              f"expected {CONVS_PER_FORWARD} forward launches per request")
@@ -1457,18 +1450,16 @@ def run_requests(tag, call, requests, warmups, smi):
     return times, launches["fwd"]
 
 
-def report_split(tag, infer, pts, proposals=None, requests=PREDICT_REQUESTS):
-    """The stage split over `requests` requests, and the device time of
-    the selection and RANSAC stages alone (profiler).  Returns (the last
-    Request, {stage: median ms}, {stage: device ms})."""
+def report_split(tag, infer, pts, requests=PREDICT_REQUESTS):
+    """The stage split of predict over `requests` requests, and the device
+    time of the selection and RANSAC stages alone (profiler).  Returns (the
+    last Request, {stage: median ms}, {stage: device ms})."""
     splits, req = [], None
     for _ in range(requests):
-        req, split = timed_request(infer, pts, proposals)
+        req, split, _ = timed_request(tag, infer, pts)
         splits.append(split)
     med = {s: statistics.median(sp[s] for sp in splits) for s in STAGES}
-    device = {}
-    if proposals is None:
-        device["select"] = busy_ms(lambda: infer._select(req.out))
+    device = {"select": busy_ms(lambda: infer._select(req.out))}
     if req.jobs is not None:
         device["ransac"] = busy_ms(lambda: infer._fit(req.jobs, 100, 0))
     counters = {k: int(v.sum()) for k, v in req.out.counters.items()}
@@ -1481,170 +1472,6 @@ def report_split(tag, infer, pts, proposals=None, requests=PREDICT_REQUESTS):
           f"box jobs {jobs}, ok boxes {int(req.ok.sum())}, part points "
           f"{int((req.result.ins_preds > 0).sum())}; counters {counters}")
     return req, med, {s: v[0] for s, v in device.items()}
-
-
-def _near_ties(name, got, want_logits, tol=None):
-    """sem_preds may differ only where the CPU's two largest logits are
-    within the forward's tolerance (or `tol`) of each other."""
-    want = want_logits.argmax(dim=-1)
-    flip = got != want
-    if flip.any():
-        top2 = want_logits[flip].topk(2, dim=-1).values
-        tol = FORWARD_RTOL * float(want_logits.abs().max()) if tol is None else tol
-        if not bool(((top2[:, 0] - top2[:, 1]) <= 2 * tol).all()):
-            raise AssertionError(f"{name}: sem_preds differ at a point that is not a near-tie")
-    return int(flip.sum())
-
-
-def _cpu_post(cpu, pts, out, keep_given):
-    """The stages after the forward on the CPU, from given forward outputs
-    (the card's, copied to the CPU)."""
-    keep = cpu._select(out) if keep_given is None else keep_given
-    result, jobs = cpu._scatter(pts, out, keep, 10)
-    fits = cpu._fit(jobs, 100, 0) if jobs is not None else None
-    return keep, result, jobs, fits
-
-
-def _cluster_replay(tag, got, cpu, pts, want, differ):
-    """sem_preds agree, yet the clustering's integers differ (`differ`).  The
-    hash clustering cuts the shifted set xyz + offset_preds into cells of
-    side radius / sqrt(3) and joins nodes by a radius test, so an offset
-    within the forward's tolerance of a cell face or of the radius moves a
-    point; where the node table overflows (the default capacity on a whole
-    cloud) one node more or less changes the overflow count and which nodes
-    are kept.  The card's offsets must lie within FORWARD_RTOL of the CPU's;
-    at most CELL_FLIP_SHARE of the valid shifted points may change cell, and
-    at least one where the node overflow differs; and a CPU forward that
-    clusters the card's sem_preds and offsets (its heads its own) must give
-    the card's counters and proposals exactly.  Returns that CPU forward."""
-    import numpy as np
-    import torch
-
-    from gapartnet_tpu_torch.ops.voxelize import div_const
-
-    print(f"[{tag} compare] clustering integers differing with sem_preds equal: "
-          f"{', '.join(differ)}")
-    n = len(pts)
-    card_offs = got.offset_preds[0, :n].cpu()
-    _check_close(f"{tag}: offset_preds", card_offs, want.offset_preds[0, :n])
-    xyz = torch.from_numpy(np.ascontiguousarray(pts[:, :3]))
-    valid = (want.sem_preds[0, :n] > 0).repeat(2)
-    side = cpu.cfg.ball_query_radius / 3.0 ** 0.5
-    cells = []
-    for offs in (card_offs, want.offset_preds[0, :n]):
-        both = torch.cat([xyz, xyz + offs])
-        lo = torch.where(valid[:, None], both, torch.tensor(1e9)).amin(dim=0) - side
-        cells.append(torch.floor(div_const(both - lo, side)))
-    moved = int(((cells[0] != cells[1]).any(dim=-1) & valid).sum())
-    n_valid = int(valid.sum())
-    print(f"[{tag} compare] points of the two sets in another hash cell on the card: {moved} of "
-          f"{n_valid}")
-    if moved > CELL_FLIP_SHARE * n_valid:
-        raise AssertionError(f"{tag}: {moved} shifted points changed hash cell "
-                             f"(> {CELL_FLIP_SHARE:.1%})")
-    if moved == 0 and "counter ccl_node_overflow" in differ:
-        raise AssertionError(f"{tag}: the node overflow differs with no point in another cell")
-    with torch.no_grad():
-        ref = cpu.model(cpu._wrap_points(pts), do_cluster=True, do_score=True, do_npcs=True,
-                        cluster_sem_override=got.sem_preds.cpu(),
-                        cluster_offset_override=got.offset_preds.cpu())
-    what = "(CPU clustering of the card's sem_preds and offsets)"
-    for k, v in ref.counters.items():
-        _check_equal(f"{tag}: counter {k} {what}", got.counters[k], v)
-    for f in ref.proposals._fields:
-        _check_equal(f"{tag}: proposals.{f} {what}", getattr(got.proposals, f),
-                     getattr(ref.proposals, f))
-    print(f"[{tag} compare] counters and proposals equal the CPU's clustering of the card's "
-          "sem_preds and offsets")
-    return ref
-
-
-def compare_requests(tag, card_req, cpu, pts, proposals_cpu=None):
-    """The same request on the CPU (same weights, same CPU-drawn RANSAC
-    samples): exact sem_preds, counters, proposals, kept proposal ids,
-    ins_preds, classes, box jobs, inlier masks, ok flags; NPCS and scores
-    within NPCS_RTOL of scale; boxes, scales, rotations and translations of
-    the ok fits within BOX_RTOL of scale.  If sem_preds differ (allowed only
-    at near-ties of the top two logits, which then change the clustering),
-    the stages after the forward run on the CPU from the card's forward
-    outputs and are held to the same rules, and an independent CPU forward
-    on the card's proposals holds the card's scores and NPCS (except where a
-    flipped point picks the class) and counters.  If sem_preds agree but the
-    clustering's counters or proposals differ, `_cluster_replay` explains
-    them by the offsets, and the stages after the forward run on the CPU
-    from its forward.  Returns how the forward's integers were held:
-    "exact", "near-ties" or "replay"."""
-    import numpy as np
-    import torch
-
-    t0 = time.perf_counter()
-    c = cpu._request(pts, proposals_cpu)
-    print(f"[{tag} compare] CPU request {time.perf_counter() - t0:.1f} s")
-    g = card_req
-    how = "exact"
-    flips = _near_ties(tag, g.out.sem_preds.cpu(), c.out.sem_logits)
-    print(f"[{tag} compare] sem_preds differing: {flips} of {c.out.sem_preds.numel()}")
-    if flips:
-        from gapartnet_tpu_torch.train.trainer import cpu_tree
-
-        prop = cpu_tree(g.out.proposals)
-        ref = cpu._forward(pts, prop)
-        for k, v in ref.counters.items():
-            _check_equal(f"{tag}: counter {k} (CPU forward on the card's proposals)",
-                         g.out.counters[k], v)
-        flip = (g.out.sem_preds.cpu() != ref.sem_preds)[0]
-        same_class = prop.proposal_mask[0] & (g.out.proposal_sem.cpu() == ref.proposal_sem)[0]
-        same_entry = prop.entry_mask[0] & ~flip[prop.entry_point[0].long()]
-        _check_close(f"{tag}: score_preds (CPU forward on the card's proposals)",
-                     g.out.score_preds[0], ref.score_preds[0], mask=same_class, rtol=NPCS_RTOL)
-        _check_close(f"{tag}: npcs_preds (CPU forward on the card's proposals)",
-                     g.out.npcs_preds[0], ref.npcs_preds[0], mask=same_entry, rtol=NPCS_RTOL)
-        keep_given = None if proposals_cpu is None else proposals_cpu.proposal_mask[0]
-        out = cpu_tree(g.out)
-        keep, result, jobs, fits = _cpu_post(cpu, pts, out, keep_given)
-        c = c._replace(out=out, keep=keep, result=result, jobs=jobs, fits=fits)
-        how = "near-ties"
-        print(f"[{tag} compare] the stages after the forward compared from the card's forward "
-              "outputs")
-    else:
-        differ = [f"counter {k}" for k, v in c.out.counters.items()
-                  if not torch.equal(g.out.counters[k].cpu(), v.cpu())]
-        differ += [f"proposals.{f}" for f in c.out.proposals._fields
-                   if not torch.equal(getattr(g.out.proposals, f).cpu(),
-                                      getattr(c.out.proposals, f).cpu())]
-        if differ and proposals_cpu is not None:
-            raise AssertionError(f"{tag}: {', '.join(differ)} differ with the proposals given")
-        if differ:
-            out = _cluster_replay(tag, g.out, cpu, pts, c.out, differ)
-            keep, result, jobs, fits = _cpu_post(cpu, pts, out, None)
-            c = c._replace(out=out, keep=keep, result=result, jobs=jobs, fits=fits)
-            how = "replay"
-            print(f"[{tag} compare] the stages after the forward compared from that CPU forward")
-    _check_equal(f"{tag}: kept proposals", g.keep, c.keep)
-    gr, cr = g.result, c.result
-    for f in ("sem_preds", "ins_preds", "proposal_classes"):
-        _check_equal(f"{tag}: {f}", torch.from_numpy(np.asarray(getattr(gr, f))),
-                     torch.from_numpy(np.asarray(getattr(cr, f))))
-    for f in ("npcs_map", "proposal_scores"):
-        _check_close(f"{tag}: {f}", torch.from_numpy(getattr(gr, f)), torch.from_numpy(getattr(cr, f)),
-                     rtol=NPCS_RTOL)
-    if (g.jobs is None) != (c.jobs is None):
-        raise AssertionError(f"{tag}: box jobs on one device only")
-    if c.jobs is None:
-        print(f"[{tag} compare] no box jobs")
-        return how
-    for f in ("mask", "owner"):
-        _check_equal(f"{tag}: jobs.{f}", torch.from_numpy(getattr(g.jobs, f)),
-                     torch.from_numpy(getattr(c.jobs, f)))
-    _check_equal(f"{tag}: ok flags", g.fits.ok, c.fits.ok)
-    _check_equal(f"{tag}: inlier masks", g.fits.inlier_mask, c.fits.inlier_mask)
-    ok = c.fits.ok.cpu()
-    for f in ("bbox", "scale", "rotation", "translation"):
-        _check_close(f"{tag}: fits.{f} (ok fits)", getattr(g.fits, f).cpu()[ok],
-                     getattr(c.fits, f)[ok], rtol=BOX_RTOL)
-    print(f"[{tag} compare] card and CPU agree: integers exactly, NPCS and scores within "
-          f"{NPCS_RTOL}, {int(ok.sum())} ok boxes within {BOX_RTOL} of scale")
-    return how
 
 
 def render_depth(xyz, rgb):
@@ -1717,6 +1544,7 @@ def phase_inference_api(smi):
 
     from gapartnet_tpu_torch.config import GAPartNetConfig, eval_capacity_config
     from gapartnet_tpu_torch.infer.api import backproject_depth, ball_space_normalize, fps_downsample
+    import smoke_parity as parity
 
     cfg = eval_capacity_config(GAPartNetConfig())
     pts, ins = bench_points()
@@ -1734,32 +1562,27 @@ def phase_inference_api(smi):
     req, split, device = report_split("predict", card, pts)
     numbers["predict"] = dict(launches=launches, **_quantiles(times), split=split, device=device,
                               max_abs_err=err)
-    compare_requests("predict", req, cpu, pts)
+    parity.compare_requests("predict", req, cpu, pts)
 
-    # predict_with_masks on the cloud's ground-truth instances
+    # predict_with_masks on the cloud's ground-truth instances: one request
+    # (the masks-b1 cell times them)
     masks = np.stack([ins == i for i in range(ins.max() + 1)])
     card, cpu = inference_pair(cfg)
-    times, launches = run_requests("masks", lambda: card.predict_with_masks(pts, masks),
-                                   PREDICT_REQUESTS, PREDICT_WARMUPS, smi)
     err = phase_api_kernels("masks", card, pts)
-    req, split, device = report_split("masks", card, pts, card._mask_proposals(masks, len(pts)))
+    req, _, launches = timed_request("masks", card, pts, card._mask_proposals(masks, len(pts)))
     counters = {k: int(v.sum()) for k, v in req.out.counters.items()}
     if any(counters.values()):
         raise AssertionError(f"masks: capacity counters nonzero: {counters}")
-    numbers["masks"] = dict(launches=launches, **_quantiles(times), split=split, device=device,
-                            max_abs_err=err)
-    compare_requests("masks", req, cpu, pts, cpu._mask_proposals(masks, len(pts)))
+    print(f"[masks] {launches['fwd']} subm_conv launches; counters {counters}")
+    numbers["masks"] = dict(launches=launches["fwd"], max_abs_err=err)
+    parity.compare_requests("masks", req, cpu, pts, cpu._mask_proposals(masks, len(pts)))
 
     # predict_depth on a depth frame rendered from the cloud
     depth, k, bgr = render_depth(pts[:, :3], pts[:, 3:])
     xyz, colors, _ = backproject_depth(depth, k, bgr)
     print(f"[depth] frame {depth.shape[1]}x{depth.shape[0]}, {len(xyz)} valid pixels")
     card, cpu = inference_pair(cfg)
-    fps_times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        idx = fps_downsample(xyz, cfg.max_points, device="cuda")
-        fps_times.append((time.perf_counter() - t0) * 1e3)
+    fps_times, idx = host_ms(lambda: fps_downsample(xyz, cfg.max_points, device="cuda"), 3)
     fps_dev, fps_kernels = busy_ms(lambda: fps_downsample(xyz, cfg.max_points, device="cuda"))
     print(f"[depth] FPS {min(len(xyz), 4 * cfg.max_points)} -> {cfg.max_points} points: "
           f"{statistics.median(fps_times):.3f} ms per call (median of 3, host clock), kernel time "
@@ -1778,7 +1601,7 @@ def phase_inference_api(smi):
     if not np.array_equal(idx, idx_cpu):
         raise AssertionError(f"FPS indices differ at {int((idx != idx_cpu).sum())} of {len(idx)}")
     print("[depth compare] FPS indices identical")
-    compare_requests("depth", req, cpu, pts_d)
+    parity.compare_requests("depth", req, cpu, pts_d)
 
     phase_joint_angle(pts[:, :3], ins)
     return numbers
@@ -1826,49 +1649,89 @@ def fit_config(data_root, run_dir, extra=()):
     return cfg
 
 
-class FitProbe:
-    """Wraps the trainer's train_step, eval_step, evaluate_splits and
-    CkptManager.save for the length of a `with` block: each call is timed
-    between two synchronizes, and the subm-conv counts are read (not reset)
-    around each train step and eval forward."""
+class Probe:
+    """Wraps functions for the length of a `with` block (`wrap`): each call
+    is timed between two synchronizes.  The block's subm-conv launches come
+    from profiling recordings that tile it, since recordings do not nest:
+    each call of a function wrapped with `counted` runs in a recording of
+    its own, whose launches its record keeps, and each stretch between such
+    calls in another; `launches` holds their sum when the block ends."""
 
     def __init__(self):
-        self.steps, self.evals, self.validations, self.saves = [], [], [], []
-
-    def _wrap(self, fn, records, key=None):
-        import torch
-
-        from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES
-
-        def wrapper(*args, **kw):
-            torch.cuda.synchronize()
-            before = dict(LAUNCHES)
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            records.append(dict(ms=(time.perf_counter() - t0) * 1e3,
-                                launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES},
-                                key=key(kw) if key else None))
-            return out
-
-        return wrapper
+        self.launches = launch_counts()
+        self._patched = []
 
     def __enter__(self):
-        from gapartnet_tpu_torch.train import trainer
-
-        self._trainer = trainer
-        self._saved = dict(train_step=trainer.train_step, eval_step=trainer.eval_step,
-                           evaluate_splits=trainer.evaluate_splits, save=trainer.CkptManager.save)
-        trainer.train_step = self._wrap(trainer.train_step, self.steps, key=lambda kw: kw["do_npcs"])
-        trainer.eval_step = self._wrap(trainer.eval_step, self.evals)
-        trainer.evaluate_splits = self._wrap(trainer.evaluate_splits, self.validations)
-        trainer.CkptManager.save = self._wrap(trainer.CkptManager.save, self.saves)
+        self._open()
         return self
 
     def __exit__(self, *exc):
-        t = self._trainer
-        t.train_step, t.eval_step = self._saved["train_step"], self._saved["eval_step"]
-        t.evaluate_splits, t.CkptManager.save = self._saved["evaluate_splits"], self._saved["save"]
+        for owner, name, fn in reversed(self._patched):
+            setattr(owner, name, fn)
+        self._close()
+
+    def _open(self):
+        from gapartnet_tpu_torch.utils import profiling
+
+        self._stretch = profiling.record()
+        self._rec = self._stretch.__enter__()
+
+    def _close(self):
+        self._stretch.__exit__(None, None, None)
+        self._add(conv_launches(self._rec))
+
+    def _add(self, got):
+        for k, n in got.items():
+            self.launches[k] += n
+
+    def wrap(self, owner, name, counted=False, key=None, keep=False):
+        """Wraps `owner.name`; returns the list that gets a record of each
+        call: its ms, with `counted` its launches, with `key` key(its
+        keyword arguments), with `keep` its result and arguments."""
+        import torch
+
+        from gapartnet_tpu_torch.utils import profiling
+
+        fn, records = getattr(owner, name), []
+        self._patched.append((owner, name, fn))
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            if counted:
+                self._close()
+            try:
+                with profiling.record() if counted else contextlib.nullcontext() as rec:
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    r = dict(ms=(time.perf_counter() - t0) * 1e3)
+            finally:
+                if counted:
+                    self._open()
+            if counted:
+                r["launches"] = conv_launches(rec)
+                self._add(r["launches"])
+            if key:
+                r["key"] = key(kw)
+            if keep:
+                r.update(result=out, args=args, kw=kw)
+            records.append(r)
+            return out
+
+        setattr(owner, name, wrapper)
+        return records
+
+    def trainer(self):
+        """Wraps the trainer's train_step and eval_step (counted; a step's
+        key its do_npcs), evaluate_splits and CkptManager.save, whose records
+        go to `steps`, `evals`, `validations` and `saves`.  Returns self."""
+        from gapartnet_tpu_torch.train import trainer
+
+        self.steps = self.wrap(trainer, "train_step", counted=True, key=lambda kw: kw["do_npcs"])
+        self.evals = self.wrap(trainer, "eval_step", counted=True)
+        self.validations = self.wrap(trainer, "evaluate_splits")
+        self.saves = self.wrap(trainer.CkptManager, "save")
+        return self
 
 
 def _metric_lines(path):
@@ -1949,14 +1812,8 @@ def fit_kernels(cfg, model, train_raw, val_raw, tag="fit"):
 
     from gapartnet_tpu_torch.config import eval_capacity_config
     from gapartnet_tpu_torch.entry import make_model
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
     from gapartnet_tpu_torch.structures import PointCloudBatch
     from gapartnet_tpu_torch.train.loop import draw_jitter
-
-    def hierarchy(mcfg, batch):
-        keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, mcfg)
-        return build_hierarchy(keys, nvox, mcfg.input_capacities(), extent=mcfg.input_grid_extent)
 
     mcfg = cfg.model
     batch = PointCloudBatch.from_numpy(train_raw, "cuda")
@@ -1965,14 +1822,14 @@ def fit_kernels(cfg, model, train_raw, val_raw, tag="fit"):
     with torch.no_grad():
         out = probe.train()(batch, do_cluster=True, do_score=True, do_npcs=True,
                             jitter=draw_jitter(torch.Generator().manual_seed(cfg.trainer.seed)))
-    hier, prop = hierarchy(mcfg, batch), out.proposal_grid
+    hier, prop = hierarchy_of(mcfg, batch), out.proposal_grid
     print(f"[{tag} kernel] B={batch.batch_size} train batch: voxels per level (max over B) "
           f"{[int(lv.num_voxels.max()) for lv in hier.levels]} of {mcfg.input_capacities()}; live "
           f"proposals {out.proposals.num_proposals.tolist()}, proposal voxels "
           f"{prop.levels[0].num_voxels.tolist()} of {mcfg.proposal_capacities()}")
     shapes = train_conv_shapes(mcfg, hier, prop)
     ecfg = eval_capacity_config(mcfg)
-    ehier = hierarchy(ecfg, PointCloudBatch.from_numpy(val_raw, "cuda"))
+    ehier = hierarchy_of(ecfg, PointCloudBatch.from_numpy(val_raw, "cuda"))
     print(f"[{tag} eval kernel] B={val_raw['points'].shape[0]} val batch (the last cloud padded): "
           f"voxels per level {[lv.num_voxels.tolist() for lv in ehier.levels]}")
     if mcfg.conv_compute_dtype == "bfloat16":
@@ -2004,6 +1861,7 @@ def compare_fit_eval(cfg, model, device_batch, cpu_batch, tag="fit compare", eva
     from gapartnet_tpu_torch.models.gapartnet import GAPartNet
     from gapartnet_tpu_torch.train.loop import eval_step
     from gapartnet_tpu_torch.train.trainer import cpu_tree, host_copy, reduce_eval_outputs
+    import smoke_parity as parity
 
     ecfg = eval_capacity_config(cfg.model) if eval_cfg is None else eval_cfg
     card = model.with_config(ecfg)
@@ -2015,7 +1873,7 @@ def compare_fit_eval(cfg, model, device_batch, cpu_batch, tag="fit compare", eva
     t0 = time.perf_counter()
     out_c = eval_step(cpu, cpu_batch, **flags)
     print(f"[{tag}] CPU eval forward {time.perf_counter() - t0:.1f} s")
-    flips = _near_ties(tag, out_g.sem_preds.cpu(), out_c.sem_logits)
+    flips = parity.near_ties(tag, out_g.sem_preds.cpu(), out_c.sem_logits)
     print(f"[{tag}] sem_preds differing: {flips} of {out_c.sem_preds.numel()}")
     if flips:
         conf_c = host_copy(reduce_eval_outputs(out_c, cpu_batch, ecfg, False))["conf"]
@@ -2038,12 +1896,12 @@ def compare_fit_eval(cfg, model, device_batch, cpu_batch, tag="fit compare", eva
         if k in ("scores", "ious"):
             got, want = torch.from_numpy(rg[k]), torch.from_numpy(rc[k])
             m = mask.get(k)
-            _check_close(f"{tag}: {k}", got, want,
-                         None if m is None else torch.from_numpy(m), rtol=FIT_SCORE_RTOL)
+            parity.check_close(f"{tag}: {k}", got, want,
+                               None if m is None else torch.from_numpy(m), rtol=FIT_SCORE_RTOL)
         elif k in ("all_accu", "pixel_accu", "conf") and flips:
             continue
         else:
-            _check_equal(f"{tag}: {k}", torch.as_tensor(rg[k]), torch.as_tensor(rc[k]))
+            parity.check_equal(f"{tag}: {k}", torch.as_tensor(rg[k]), torch.as_tensor(rc[k]))
     pad = ~cpu_batch.point_mask.any(dim=1).numpy()
     if rg["keep"][pad].any():
         raise AssertionError(f"{tag}: a padded cloud kept {int(rg['keep'][pad].sum())} "
@@ -2065,7 +1923,6 @@ def phase_fit(smi, keep_last=None):
 
     import torch
 
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
     from gapartnet_tpu_torch.train import trainer
 
     numbers = {}
@@ -2080,13 +1937,12 @@ def phase_fit(smi, keep_last=None):
               f"{FIT_EVAL_CLOUDS} per eval split")
 
         # the fit, in process
-        reset_launches()
         t0 = time.perf_counter()
-        with FitProbe() as probe:
+        with Probe().trainer() as probe:
             state = trainer.fit(cfg, device="cuda")
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
+        launches = probe.launches
         print(f"[fit] trainer.fit: {fit_s:.1f} s; capacities {cfg.model.input_capacities()}, extent "
               f"{cfg.model.input_grid_extent}, node cap {cfg.model.hash_node_capacity}, cand cap "
               f"{cfg.model.hash_cand_cap}, degree {cfg.model.hash_max_degree}")
@@ -2154,10 +2010,9 @@ def phase_fit(smi, keep_last=None):
             ("model.init_args.training_schedule", "[0, 0]"), ("trainer.max_epochs", "1"),
             ("model.init_args.ckpt", str(last))))
         fcfg.trainer.freeze_prefixes = FREEZE
-        reset_launches()
-        with FitProbe() as fprobe:
+        with Probe().trainer() as fprobe:
             fstate = trainer.fit(fcfg, device="cuda")
-        frozen_launches = dict(LAUNCHES)
+        frozen_launches = fprobe.launches
         _check_launches("frozen step", fprobe.steps, lambda r: FROZEN_LAUNCHES_PER_STEP)
         ref = trainer.CkptManager.restore(str(last))["model"]
         after = fstate.model.state_dict()
@@ -2259,8 +2114,6 @@ def _check_dp_first_step(rank_tag, metrics, model, ref):
     """The first data-parallel step against the one-process reference:
     the ranks' summed losses and the running statistics within 1e-4 of
     magnitude, every gradient within phase 6's allowance."""
-    import torch
-
     for k, want in ref["losses"].items():
         got = metrics[k]
         if not abs(got - want) <= LOSS_RTOL * max(abs(want), 1.0):
@@ -2297,16 +2150,13 @@ def _dp_step_rank(rank, dev, tmp):
     """Part (a) on one rank: the kernels against their plain versions at
     this rank's shapes, then the data-parallel train step at B = DP_BATCH:
     the first step against the reference, DP_WARMUP_STEPS - 1 more, then
-    DP_TIMED_STEPS timed ones (launches and all-reduces counted), the
-    parameters and buffers bitwise against rank 0's, and the gradient
-    all-reduce alone timed."""
+    DP_TIMED_STEPS in a recording (launches and all-reduces counted) and
+    as many timed ones with no recording on, the parameters and buffers
+    bitwise against rank 0's, and the gradient all-reduce alone timed."""
     import torch
     import torch.distributed as dist
 
     from gapartnet_tpu_torch.entry import make_model
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
     from gapartnet_tpu_torch.parallel import dist as pdist
     from gapartnet_tpu_torch.train.loop import adam, train_step
 
@@ -2317,8 +2167,7 @@ def _dp_step_rank(rank, dev, tmp):
     sub = _clouds(inp["batch"], lo, hi).to(dev)
     sem, off = inp["sem"][lo:hi].to(dev), inp["off"][lo:hi].to(dev)
 
-    keys, _, nvox, _ = prepare_input_grid(sub.points, sub.point_mask, cfg)
-    hier = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
+    hier = hierarchy_of(cfg, sub)
     rows = phase_train_kernels(train_conv_shapes(cfg, hier, proposal_geometry(cfg, sub, sem, off)),
                                tag=f"{tag} kernel", timed=False)
     err = {k: max(r[k]["max_abs_err"] for r in rows) for k in ("fwd", "dgrad", "wgrad")}
@@ -2340,35 +2189,24 @@ def _dp_step_rank(rank, dev, tmp):
         compared = _check_dp_first_step(tag, dict(zip(names, summed.tolist())), model,
                                         torch.load(tmp / "reference.pt", weights_only=False))
     history = [first] + [step() for _ in range(DP_WARMUP_STEPS - 1)]
-    torch.cuda.synchronize()
 
     calls = [0]
     all_reduce = dist.all_reduce
 
-    def counted(*a, **kw):
+    def counting_all_reduce(*a, **kw):
         calls[0] += 1
         return all_reduce(*a, **kw)
 
-    dist.all_reduce = counted
-    reset_launches()
-    times = []
+    dist.all_reduce = counting_all_reduce
     try:
-        for _ in range(DP_TIMED_STEPS):
-            t0 = time.perf_counter()
-            history.append(step())
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        launches, _, _ = counted(lambda: history.append(step()), DP_TIMED_STEPS)
     finally:
         dist.all_reduce = all_reduce
-    launches = dict(LAUNCHES)
+    times, _ = host_ms(lambda: history.append(step()), DP_TIMED_STEPS)
     want = {k: n * DP_TIMED_STEPS for k, n in LAUNCHES_PER_STEP.items()}
     if launches != want:
         raise AssertionError(f"{tag}: {DP_TIMED_STEPS} steps launched {launches}, expected {want}")
-    for i, m in enumerate(history):
-        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
-        nonzero = {k: float(v) for k, v in m.items() if k.startswith("counters/") and float(v)}
-        if bad or nonzero:
-            raise AssertionError(f"{tag} step {i + 1}: non-finite {bad}, counters {nonzero}")
+    _check_steps(f"{tag} ", history)
 
     flat = torch.cat([t.detach().reshape(-1).view(torch.uint8)
                       for t in [*model.parameters(), *model.buffers()]])
@@ -2380,7 +2218,7 @@ def _dp_step_rank(rank, dev, tmp):
 
     params = [p for group in opt.param_groups for p in group["params"]]
     grads = torch.cat([p.grad.reshape(-1) for p in params])
-    event_ms, host_ms = [], []
+    event_ms, wall_ms = [], []
     for _ in range(DP_ALLREDUCE_RUNS):
         buf = grads.clone()
         pdist.barrier()
@@ -2391,20 +2229,20 @@ def _dp_step_rank(rank, dev, tmp):
         pdist.all_reduce_(buf)
         end.record()
         torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
         event_ms.append(start.elapsed_time(end))
     q = _quantiles(times)
     print(f"[{tag}] B={DP_BATCH} ms per data-parallel step over {DP_TIMED_STEPS} steps: median "
           f"{q['median']:.3f}, p10 {q['p10']:.3f}, p90 {q['p90']:.3f} (two ranks share one card and "
           f"its host: not a scaling figure); {calls[0] // DP_TIMED_STEPS} all-reduces per step, "
           f"{grads.numel() * grads.element_size()} gradient bytes per step; gradient all-reduce "
-          f"alone {statistics.median(event_ms):.3f} ms (CUDA events; host {statistics.median(host_ms):.3f})"
+          f"alone {statistics.median(event_ms):.3f} ms (CUDA events; host {statistics.median(wall_ms):.3f})"
           f"; launches {launches}; counters 0; bitwise equal to rank 0")
     return dict(ms=times, median_ms=q["median"], p10_ms=q["p10"], p90_ms=q["p90"],
                 allreduces_per_step=calls[0] / DP_TIMED_STEPS,
                 grad_bytes=grads.numel() * grads.element_size(),
                 allreduce_ms=statistics.median(event_ms),
-                allreduce_host_ms=statistics.median(host_ms), launches=launches,
+                allreduce_host_ms=statistics.median(wall_ms), launches=launches,
                 max_abs_err=err, first_step=compared,
                 losses_first={k: float(v) for k, v in zip(names, summed.tolist())})
 
@@ -2413,7 +2251,6 @@ def _dp_fit_rank(rank, dev, tmp):
     """Part (b) on one rank: trainer.fit on the cut dataset, recording this
     rank's file shards, its train steps and eval forwards, and every
     metric dict the trainer logs (rank 0 writes it; every rank holds it)."""
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
     from gapartnet_tpu_torch.train import trainer
 
     cfg = fit_config(tmp / "fitdata", tmp / f"fit_rank{rank}", extra=DP_FIT_OVERRIDES)
@@ -2430,9 +2267,8 @@ def _dp_fit_rank(rank, dev, tmp):
         return log(self, metrics, step)
 
     trainer.build_datasets, trainer.MetricLogger.log = record_build, record_log
-    reset_launches()
     try:
-        with FitProbe() as probe:
+        with Probe().trainer() as probe:
             trainer.fit(cfg, device=dev)
     finally:
         trainer.build_datasets, trainer.MetricLogger.log = build, log
@@ -2442,7 +2278,7 @@ def _dp_fit_rank(rank, dev, tmp):
           + ", ".join(f"{r['ms']:.3f}" for r in probe.steps) + f" ms; {len(probe.evals)} eval "
           f"forwards; train shard {len(seen['paths']['train'])} clouds")
     return dict(seen, steps=len(probe.steps), step_ms=[r["ms"] for r in probe.steps],
-                evals=len(probe.evals), launches=dict(LAUNCHES),
+                evals=len(probe.evals), launches=probe.launches,
                 model=repr(cfg.model))
 
 
@@ -2528,30 +2364,6 @@ def phase_dp(cfg, batch, cluster_sem, cluster_off, smi):
               f"ranks logged the same {len(logged[0])} lines; rank 0 alone wrote {wrote[0]}; "
               f"train_loss/total_loss {logged[0][0]['train_loss/total_loss']:.4f}  ({smi})")
     return ranks
-
-
-@contextlib.contextmanager
-def bn_ulp_probe(seed):
-    """Within the block every MaskedBatchNorm output of the port moves by a
-    seeded -1, 0 or +1 fp32 ulp of its magnitude (another fp32 rounding,
-    as a fused multiply-add or a sum in another order gives)."""
-    import torch
-
-    from gapartnet_tpu_torch.models import norm
-
-    gen = torch.Generator().manual_seed(seed)
-    orig = norm.MaskedBatchNorm.forward
-
-    def moved(self, x, mask=None):
-        y = orig(self, x, mask)
-        r = torch.randint(-1, 2, y.shape, generator=gen).to(device=y.device, dtype=y.dtype)
-        return y + r * torch.finfo(torch.float32).eps * y.abs().detach()
-
-    norm.MaskedBatchNorm.forward = moved
-    try:
-        yield
-    finally:
-        norm.MaskedBatchNorm.forward = orig
 
 
 def _bf16_err(got, want):
@@ -2679,7 +2491,7 @@ def phase_bf16_kernels(shapes, kinds, tag, timed=True):
             if not torch.equal(got, again):
                 raise AssertionError(f"{kind} not bitwise repeatable at {cin}->{cout}, V={v}")
             nbytes = bf16_bytes(kind, b, v, cin, cout)
-            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            bound_ms, bound_by = roofline(flops, nbytes, PEAK_BF16_FLOPS)
             want_launches = bf16_launches_expected(sc, kind, b, v, cin, cout)
             launched = kernels_per_call(kernel)
             # more kernels than the plan's would be an operand copy or a
@@ -2720,18 +2532,12 @@ def interleaved(tag, fns, n, smi):
     each after one warm-up each (host clock, each call ending in a
     synchronize): an A/B within one stretch of the call, so that the
     host's drift over the call falls on both alike."""
-    import torch
-
     times = {k: [] for k in fns}
     for fn in fns.values():
         fn()
-    torch.cuda.synchronize()
     for _ in range(n):
         for k, fn in fns.items():
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times[k].append((time.perf_counter() - t0) * 1e3)
+            times[k] += host_ms(fn, 1)[0]
     med = {k: statistics.median(v) for k, v in times.items()}
     print(f"[{tag}] in turns, {n} calls each: " + ", ".join(
         f"{k} median {m:.3f} ms (p10 {statistics.quantiles(times[k], n=10)[0]:.3f}, p90 "
@@ -2776,32 +2582,28 @@ def phase_bf16(fp32_forward_ms, smi):
 
     The bf16 forward, dgrad and wgrad kernels against their plain versions
     at every backbone shape of bench_cloud_setup and every training shape
-    of train_setup at bf16; the bare forward (5 warm-ups, 20 timed, 53
-    fwd_bf16 launches each and no fp32 one, zero counters, a profile), and
-    in turns with the fp32 forward;
+    of train_setup at bf16; the bare forward (5 warm-ups, 30 recorded with
+    53 fwd_bf16 launches each and no fp32 one, 30 timed, zero counters, a
+    profile), and in turns with the fp32 forward;
     the same forward on the CPU at B = 1 (integers exactly, floats within
-    the probes' allowance); train_step at B = 8 (3 warm-ups, 10 timed,
-    77 / 76 / 77 bf16 launches, zero counters, moving losses, a profile),
-    and in turns with the fp32 step;
+    the probes' allowance); train_step at B = 8 (3 warm-ups, 20 recorded
+    with 77 / 76 / 77 bf16 launches each, 20 timed, zero counters, moving
+    losses, a profile), and in turns with the fp32 step;
     one card step against the CPU step at B = 2 (phase 6's allowance and
     the bf16 terms).  Returns the numbers for the kernel line."""
     import torch
 
     from gapartnet_tpu_torch.config import GAPartNetConfig
     from gapartnet_tpu_torch.entry import bench_cloud_setup, make_model, train_setup
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
     from gapartnet_tpu_torch.train.loop import adam, train_step
 
     t = time.perf_counter()
     bf16 = GAPartNetConfig(conv_compute_dtype="bfloat16")
     cfg, batch, sem, off = bench_cloud_setup(bf16, device="cuda")
-    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg)
-    hier = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
+    hier = hierarchy_of(cfg, batch)
     inf_rows = phase_bf16_kernels(bf16_inference_shapes(cfg, hier), ("fwd_bf16",), "bf16 kernel")
     tcfg, tbatch, tsem, toff = train_setup(bf16, batch_size=TRAIN_BATCH, device="cuda")
-    tkeys, _, tnvox, _ = prepare_input_grid(tbatch.points, tbatch.point_mask, tcfg)
-    thier = build_hierarchy(tkeys, tnvox, tcfg.input_capacities(), extent=tcfg.input_grid_extent)
+    thier = hierarchy_of(tcfg, tbatch)
     shapes = bf16_train_shapes(
         train_conv_shapes(tcfg, thier, proposal_geometry(tcfg, tbatch, tsem, toff)))
     train_rows = phase_bf16_kernels(shapes, BF16_KINDS, "bf16 train kernel")
@@ -2862,7 +2664,7 @@ def bf16_kernel_entries(numbers, tools=None, sustained=None):
         per = [(r, r["per_step"][kind]) for r in rows if r["per_step"][kind]]
         flops = sum(r["flops"] * n for r, n in per)
         nbytes = sum(r[kind]["bytes"] * n for r, n in per)
-        bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+        bound, by = roofline(flops, nbytes, PEAK_BF16_FLOPS)
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "reference": reference, "launches": numbers["train_launches"][kind],
@@ -2883,7 +2685,7 @@ def bf16_kernel_entries(numbers, tools=None, sustained=None):
             inf = numbers["inf_rows"]
             iflops = sum(r["flops"] * r["per_step"][kind] for r in inf)
             ibytes = sum(r[kind]["bytes"] * r["per_step"][kind] for r in inf)
-            ib, iby = _bound(iflops, ibytes, PEAK_BF16_FLOPS)
+            ib, iby = roofline(iflops, ibytes, PEAK_BF16_FLOPS)
             entry["max_abs_err"] = max(entry["max_abs_err"], max(r[kind]["max_abs_err"] for r in inf))
             entry["inference"] = {
                 "launches": numbers["forward_launches"],
@@ -2985,29 +2787,30 @@ def ccl_kernel_row(tag, nbr, valid, smi):
     lists in L2 across iterations); beside it `bound_iterated_ms`, the
     listed neighbours' and the labels' (read and written) bytes of an
     iteration, times the iterations.  Prints the row and returns it."""
-    import torch
-
     from gapartnet_tpu_torch.ops import ccl
+    from gapartnet_tpu_torch.utils import profiling
+    import smoke_parity as parity
 
     def run():
         return ccl.connected_components_kernel(nbr, valid)
 
-    launches = ccl.LAUNCHES
-    got = run()
-    if ccl.LAUNCHES != launches + 1:
-        raise AssertionError(f"{tag}: {ccl.LAUNCHES - launches} CCL kernel launches a call")
+    with profiling.record() as rec:
+        got = run()
+    if rec.counts.get("ccl_exact_launches", 0) != 1:
+        raise AssertionError(f"{tag}: {rec.counts.get('ccl_exact_launches', 0)} CCL kernel "
+                             "launches a call")
     plain = ccl.connected_components_reference(nbr, valid)
-    ccl.STATS["iterations"] = 0
-    cpu = ccl.connected_components_reference(nbr.cpu(), valid.cpu())
+    with profiling.record() as rec:
+        cpu = ccl.connected_components_reference(nbr.cpu(), valid.cpu())
     labels, iterations, flag = (t.cpu() for t in got)
     for where, (want, want_flag) in (("card", plain), ("CPU", cpu)):
-        _check_equal(f"{tag}: CCL kernel labels vs the plain loop on the {where}", labels, want)
+        parity.check_equal(f"{tag}: CCL kernel labels vs the plain loop on the {where}", labels, want)
         if int(flag) != int(want_flag):
             raise AssertionError(f"{tag}: CCL kernel flag {int(flag)}, the plain loop's on the "
                                  f"{where} {int(want_flag)}")
-    if int(iterations) != ccl.STATS["iterations"]:
+    if int(iterations) != rec.counts["ccl_exact_iterations"]:
         raise AssertionError(f"{tag}: CCL kernel {int(iterations)} iterations, the plain loop "
-                             f"{ccl.STATS['iterations']}")
+                             f"{rec.counts['ccl_exact_iterations']}")
     n, listed = nbr.shape[0], int((nbr >= 0).sum())
     nbytes = 4 * listed + n + 4 * n
     iterated = (4 * listed + 2 * 4 * n) * int(iterations)
@@ -3017,8 +2820,8 @@ def ccl_kernel_row(tag, nbr, valid, smi):
                ms=cuda_ms(run, EXACT_CALL_RUNS),
                plain_ms=cuda_ms(lambda: ccl.connected_components_reference(nbr, valid),
                                 EXACT_CALL_RUNS),
-               bound_ms=nbytes / PEAK_HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-               bound_iterated_ms=iterated / PEAK_HBM_BYTES_PER_S * 1e3)
+               bound_ms=roofline(0, nbytes)[0], bound_by="bytes",
+               bound_iterated_ms=roofline(0, iterated)[0])
     print(f"[exact ccl] {tag}: N {row['N']}, K {row['K']}, {listed} neighbours listed, "
           f"{row['iterations']} iterations, flag {row['unconverged']}; kernel "
           f"{_fmt(row['device_ms'])} ms device, {row['ms']:.4f} ms a call (one launch, no host "
@@ -3032,7 +2835,7 @@ def ccl_kernel_row(tag, nbr, valid, smi):
 def ccl_kernel_entry(ops, launches=None, forwards=None):
     """The {"kernels": [...]} entry of the exact CCL kernel: per exact
     forward of the bench cloud (its two sets), from phase_exact_ops' rows;
-    `launches` are those counted over `forwards` timed forwards of
+    `launches` are those counted over `forwards` recorded forwards of
     phase_exact (None where no forward ran)."""
     sets = [ops[name]["ccl"] for name in ("xyz", "xyz+offsets")]
 
@@ -3077,6 +2880,8 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
 
     from gapartnet_tpu_torch.ops import ball_query as bq
     from gapartnet_tpu_torch.ops import ccl
+    from gapartnet_tpu_torch.utils import profiling
+    import smoke_parity as parity
 
     xyz = batch.points[0, :, :3]
     sem = cluster_sem[0].to(torch.int32)
@@ -3087,12 +2892,12 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
         def query():
             return bq.ball_query_single(pts, sem, valid, cfg.ball_query_radius, k)
 
-        bq.STATS.update(calls=0, tiles=0, exact_pairs=0)
-        nbr, cnt = query()
-        torch.cuda.synchronize()
-        stats = dict(bq.STATS)
+        with profiling.record() as rec:
+            nbr, cnt = query()
+            torch.cuda.synchronize()
         lab = ccl.connected_components_single(nbr, valid)[0]
-        row = dict(k=k, tiles=stats["tiles"], exact_pairs=stats["exact_pairs"],
+        row = dict(k=k, tiles=rec.counts.get("ball_query_tiles", 0),
+                   exact_pairs=rec.counts.get("ball_query_band_pairs", 0),
                    bq_ms=cuda_ms(query, EXACT_CALL_RUNS))
         row["bq_device_ms"], row["bq_kernels"] = busy_ms(query)
         row["ccl"] = ccl_kernel_row(f"set {name}, K={k}", nbr, valid, smi)
@@ -3101,9 +2906,10 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
         def query_all():
             return bq.ball_query_single(pts, sem, everyone, cfg.ball_query_radius, k)
 
-        bq.STATS.update(calls=0, tiles=0, exact_pairs=0)
-        nbr_all, _ = query_all()
-        row["all_valid"] = dict(tiles=bq.STATS["tiles"], bq_ms=cuda_ms(query_all, EXACT_CALL_RUNS))
+        with profiling.record() as rec:
+            nbr_all, _ = query_all()
+        row["all_valid"] = dict(tiles=rec.counts.get("ball_query_tiles", 0),
+                                bq_ms=cuda_ms(query_all, EXACT_CALL_RUNS))
         row["all_valid"]["bq_device_ms"], row["all_valid"]["bq_kernels"] = busy_ms(query_all)
         row["all_valid"]["ccl"] = ccl_kernel_row(f"set {name}, K={k}, all valid", nbr_all,
                                                  everyone, smi)
@@ -3112,8 +2918,8 @@ def phase_exact_ops(cfg, batch, cluster_sem, cluster_off, smi):
         lab_c = ccl.connected_components_single(nbr_c, valid.cpu())[0]
         row["cpu_s"] = time.perf_counter() - t0
         _check_neighbours(f"set {name}", nbr, nbr_c, pts, cfg.ball_query_radius)
-        _check_equal(f"set {name}: neighbour counts", cnt, cnt_c)
-        _check_equal(f"set {name}: CCL labels", lab, lab_c)
+        parity.check_equal(f"set {name}: neighbour counts", cnt, cnt_c)
+        parity.check_equal(f"set {name}: CCL labels", lab, lab_c)
         hits = cnt.float()
         print(f"[exact ops] set {name}, K={k}: ball query {row['bq_ms']:.3f} ms per call (kernel "
               f"{_fmt(row['bq_device_ms'])} ms in {row['bq_kernels']} launches; {row['tiles']} tiles, "
@@ -3134,9 +2940,10 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
     """Phase 12a: GAPartNetConfig(clustering_impl="exact") on the bench
     cloud with the clustering overrides, capacities fitted
     (entry.bench_cloud_setup).  EXACT_WARMUPS forwards, then EXACT_FORWARDS
-    in turns with the hash forward of phase 3's setup, each exact forward
-    with the counts set to 0 just before and read just after (53 forward
-    launches, 2 ball queries, 2 CCLs); zero counters; the ball query and
+    each in a recording of its own (53 forward launches, 2 ball queries, 2
+    CCLs of one launch each and no host sync), then EXACT_FORWARDS timed
+    with no recording on, in turns with the hash forward of phase 3's
+    setup; zero counters; the CCL iterations of the last; the ball query and
     the CCL alone (phase_exact_ops); the forward against the CPU (phase 4's
     rules); then EXACT_PREDICTS GAPartNetInference.predict requests at the
     eval capacities against the CPU (phase 7's rules).  Returns the numbers."""
@@ -3144,10 +2951,7 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
 
     from gapartnet_tpu_torch.config import GAPartNetConfig, eval_capacity_config
     from gapartnet_tpu_torch.entry import bench_cloud_setup, make_model
-    from gapartnet_tpu_torch.ops import ball_query as bq
-    from gapartnet_tpu_torch.ops import ccl
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
-    from gapartnet_tpu_torch.utils import profiling
+    import smoke_parity as parity
 
     t = time.perf_counter()
     cfg, batch, sem, off = bench_cloud_setup(GAPartNetConfig(clustering_impl="exact"), device="cuda")
@@ -3160,52 +2964,45 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
         run_forward(model, batch, sem, off)
     run_forward(model_h, hash_batch, hash_sem, hash_off)
     torch.cuda.synchronize()
-    times = {"exact": [], "hash": []}
     launches = launch_counts()
     bq_calls = ccl_calls = ccl_launches = 0
     for _ in range(EXACT_FORWARDS):
-        reset_launches()
-        bq.STATS.update(calls=0, tiles=0, exact_pairs=0)
-        ccl.STATS.update(calls=0)
-        ccl_launched = ccl.LAUNCHES
-        t0 = time.perf_counter()
-        out = run_forward(model, batch, sem, off)
-        torch.cuda.synchronize()
-        times["exact"].append((time.perf_counter() - t0) * 1e3)
-        if LAUNCHES != launch_counts(fwd=CONVS_PER_FORWARD):
-            raise AssertionError(f"exact forward: subm_conv launched {LAUNCHES}")
-        if (bq.STATS["calls"], ccl.STATS["calls"], ccl.LAUNCHES - ccl_launched) != (2, 2, 2):
-            raise AssertionError(f"exact forward: {bq.STATS['calls']} ball queries, "
-                                 f"{ccl.STATS['calls']} CCLs, {ccl.LAUNCHES - ccl_launched} CCL "
-                                 "kernel launches (expected 2, 2 and 2)")
-        launches["fwd"] += LAUNCHES["fwd"]
-        bq_calls += bq.STATS["calls"]
-        ccl_calls += ccl.STATS["calls"]
-        ccl_launches += ccl.LAUNCHES - ccl_launched
-        t0 = time.perf_counter()
-        run_forward(model_h, hash_batch, hash_sem, hash_off)
-        torch.cuda.synchronize()
-        times["hash"].append((time.perf_counter() - t0) * 1e3)
+        got, rec, out = counted(lambda: run_forward(model, batch, sem, off))
+        spans = rec.summary()
+        calls = (spans["cluster:ball_query"]["n"], spans["cluster:ccl"]["n"],
+                 rec.counts.get("ccl_exact_launches", 0))
+        if got != launch_counts(fwd=CONVS_PER_FORWARD):
+            raise AssertionError(f"exact forward: subm_conv launched {got}")
+        if calls != (2, 2, 2):
+            raise AssertionError(f"exact forward: {calls[0]} ball queries, {calls[1]} CCLs, "
+                                 f"{calls[2]} CCL kernel launches (expected 2, 2 and 2)")
+        # the CCL iterations stay on the card: the recorder reads them
+        if "sync:ccl_exact_converged" in spans:
+            raise AssertionError("exact forward: the CCL made a host sync on the card")
+        iters = rec.counts["ccl_exact_iterations"]
+        launches["fwd"] += got["fwd"]
+        bq_calls += calls[0]
+        ccl_calls += calls[1]
+        ccl_launches += calls[2]
+    # timed apart from the recordings, whose counts add device work to the
+    # exact forward alone
+    times = {"exact": [], "hash": []}
+    for _ in range(EXACT_FORWARDS):
+        times["exact"] += host_ms(lambda: run_forward(model, batch, sem, off), 1)[0]
+        times["hash"] += host_ms(lambda: run_forward(model_h, hash_batch, hash_sem, hash_off), 1)[0]
     counters = {k: int(v.sum()) for k, v in out.counters.items()}
     if any(counters.values()):
         raise AssertionError(f"exact forward: capacity counters nonzero: {counters}")
     for name in ("sem_logits", "offset_preds", "score_preds", "npcs_preds"):
         if not bool(torch.isfinite(getattr(out, name)).all()):
             raise AssertionError(f"exact forward: {name} has non-finite values")
-    # the CCL iterations stay on the card: the recorder reads them
-    with profiling.record() as rec:
-        run_forward(model, batch, sem, off)
-        torch.cuda.synchronize()
-    iters = rec.counts["ccl_exact_iterations"]
-    if "sync:ccl_exact_converged" in rec.summary():
-        raise AssertionError("exact forward: the CCL made a host sync on the card")
     q = {k: _quantiles(v) for k, v in times.items()}
     print(f"[exact] ms per cloud, {EXACT_FORWARDS} each in turns (after {EXACT_WARMUPS} warm-ups): "
           + "; ".join(f"{k} median {v['median']:.3f}, p10 {v['p10']:.3f}, p90 {v['p90']:.3f}"
                       for k, v in q.items()) + f"  ({smi})")
     print(f"[exact] per forward: {launches['fwd'] // EXACT_FORWARDS} subm_conv fwd launches, "
           f"{bq_calls // EXACT_FORWARDS} ball queries, {ccl_calls // EXACT_FORWARDS} CCLs, "
-          f"{iters} CCL iterations (one recorded forward); proposals "
+          f"{iters} CCL iterations (the last forward); proposals "
           f"{out.proposals.num_proposals.tolist()}; counters {counters}")
     ops = phase_exact_ops(cfg, batch, sem, off, smi)
     phase_compare(cfg, batch, sem, off, model, out)
@@ -3215,12 +3012,12 @@ def phase_exact(hash_cfg, hash_batch, hash_sem, hash_off, smi):
     pts, _ = bench_points()
     card, cpu = inference_pair(eval_capacity_config(GAPartNetConfig(clustering_impl="exact")))
     ptimes, plaunches = run_requests("exact predict", lambda: card.predict(pts), EXACT_PREDICTS, 1, smi)
-    req, split = timed_request(card, pts)
+    req, split, _ = timed_request("exact predict", card, pts)
     print(f"[exact predict] split (host clock, program spans; ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()) + f"; proposals "
         f"{int(req.out.proposals.num_proposals[0])}, kept {int(req.keep.sum())}; counters "
         f"{ {k: int(v.sum()) for k, v in req.out.counters.items()} }")
-    compare_requests("exact predict", req, cpu, pts)
+    parity.compare_requests("exact predict", req, cpu, pts)
     lap("phase 12a (exact predict, vs CPU)", t)
     return dict(forward_launches=launches, forward_ms=q["exact"], hash_forward_ms=q["hash"],
                 ops=ops, predict_launches=plaunches, predict_ms=_quantiles(ptimes),
@@ -3246,10 +3043,10 @@ def phase_pointnet(tcfg, tbatch, tsem, toff, smi):
     cfg = dataclasses.replace(tcfg, backbone_type="PointNet")
     shapes = train_conv_shapes(cfg, None, proposal_geometry(cfg, tbatch, tsem, toff))
     rows = phase_train_kernels(shapes, tag="pointnet train kernel", timed=False)
-    step, launches, times = phase_train(cfg, tbatch, tsem, toff, smi,
-                                        per_step=POINTNET_LAUNCHES_PER_STEP, tag="pointnet train",
-                                        warmups=POINTNET_WARMUPS, steps=POINTNET_STEPS)
-    phase_profile(step, statistics.median(times), tag="pointnet train profile",
+    step, launches, _ = phase_train(cfg, tbatch, tsem, toff, smi,
+                                    per_step=POINTNET_LAUNCHES_PER_STEP, tag="pointnet train",
+                                    warmups=POINTNET_WARMUPS, steps=POINTNET_STEPS, timed=False)
+    phase_profile(step, tag="pointnet train profile",
                   what=f"one PointNet train step (B={tbatch.batch_size})")
     del step
     torch.cuda.empty_cache()
@@ -3265,7 +3062,7 @@ def phase_pointnet(tcfg, tbatch, tsem, toff, smi):
         raise AssertionError(f"PointNet eval forward: capacity counters nonzero: {counters}")
     phase_compare(ecfg, batch, sem, off, model, out)
     lap("phase 12b (PointNet eval forward vs CPU)", t)
-    return dict(train_launches=launches, step_ms=_quantiles(times),
+    return dict(train_launches=launches,
                 max_abs_err={k: max(r[k]["max_abs_err"] for r in rows)
                              for k in ("fwd", "dgrad", "wgrad")})
 
@@ -3331,8 +3128,9 @@ def datagen_batch(cfg, items, device="cuda"):
 def phase_datagen(smi, tmp):
     """Phase 13: generated assets -> SAPIEN-free renders -> predict_depth
     through the demo's --asset path -> ingested .npz clouds -> the native
-    dataset -> train steps, timed by utils/profiling.StepTimer and traced
-    by its maybe_trace, in the directory `tmp`.  Returns the numbers for
+    dataset -> train steps, counted in a recording, then timed by
+    utils/profiling.StepTimer with no recording on, and one traced by its
+    maybe_trace, in the directory `tmp`.  Returns the numbers for
     the kernel line."""
     import numpy as np
     import torch
@@ -3344,11 +3142,8 @@ def phase_datagen(smi, tmp):
     from gapartnet_tpu_torch.datagen.synthetic import generate_assets
     from gapartnet_tpu_torch.demo import asset_request
     from gapartnet_tpu_torch.infer.api import GAPartNetInference
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
     from gapartnet_tpu_torch.train.loop import adam, train_step
-    from gapartnet_tpu_torch.utils.profiling import StepTimer, device_memory_stats, maybe_trace
+    from gapartnet_tpu_torch.utils.profiling import StepTimer, device_memory_stats, maybe_trace, record
 
     cfg = GAPartNetConfig()
     num_points = cfg.max_points
@@ -3399,14 +3194,12 @@ def phase_datagen(smi, tmp):
 
     # 13b: predict_depth on a rendered view through the demo's --asset path
     infer = GAPartNetInference(cfg, seed=0, auto_capacity=True, device="cuda")
-    asset_request(infer, usable[0], DATAGEN_SEED)                   # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    view = asset_request(infer, usable[0], DATAGEN_SEED)
-    torch.cuda.synchronize()
-    request_ms = (time.perf_counter() - t0) * 1e3
-    depth_launches = dict(LAUNCHES)
+    def request():
+        return asset_request(infer, usable[0], DATAGEN_SEED)
+
+    request()                                                        # warm-up
+    depth_launches, _, _ = counted(request)
+    (request_ms,), view = host_ms(request, 1)
     if depth_launches != launch_counts(fwd=CONVS_PER_FORWARD):
         raise AssertionError(f"the asset's predict_depth launched {depth_launches}, expected "
                              f"{CONVS_PER_FORWARD} forward launches")
@@ -3415,11 +3208,7 @@ def phase_datagen(smi, tmp):
         raise AssertionError("the asset's predict_depth: non-finite outputs")
     maps = view["maps"]
     bgr = np.ascontiguousarray(maps["rgb"][..., ::-1])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    infer.predict_depth(maps["depth"], maps["K"], bgr)
-    torch.cuda.synchronize()
-    depth_ms = (time.perf_counter() - t0) * 1e3
+    (depth_ms,), _ = host_ms(lambda: infer.predict_depth(maps["depth"], maps["K"], bgr), 1)
     print(f"[datagen depth] {Path(usable[0]).name}: render + predict_depth {request_ms:.1f} ms, "
           f"predict_depth alone {depth_ms:.1f} ms ({fg[usable[0]]} pixels, FPS to {num_points}); "
           f"{depth_launches['fwd']} subm_conv forward launches; sem agreement vs render labels "
@@ -3463,8 +3252,7 @@ def phase_datagen(smi, tmp):
           f"{timer.summary()['load']:.1f} ms, equal to the plain NumPy version's; instances "
           f"{[int(it['num_instances']) for it in items]}")
     tcfg, batch, csem, coff = datagen_batch(cfg, items)
-    tkeys, _, tnvox, _ = prepare_input_grid(batch.points, batch.point_mask, tcfg)
-    thier = build_hierarchy(tkeys, tnvox, tcfg.input_capacities(), extent=tcfg.input_grid_extent)
+    thier = hierarchy_of(tcfg, batch)
     print(f"[datagen train] B={DATAGEN_BATCH} capacities {tcfg.input_capacities()}, voxels per level "
           f"(max over B) {[int(lv.num_voxels.max()) for lv in thier.levels]}")
     rows = phase_train_kernels(train_conv_shapes(tcfg, thier, proposal_geometry(tcfg, batch, csem, coff)),
@@ -3478,22 +3266,19 @@ def phase_datagen(smi, tmp):
                           cluster_sem_override=csem, cluster_offset_override=coff)
 
     history = [step() for _ in range(DATAGEN_WARMUPS)]
-    torch.cuda.synchronize()
-    reset_launches()
+    train_launches, _, _ = counted(lambda: history.append(step()), DATAGEN_STEPS)
     for i in range(DATAGEN_STEPS):
         with timer.time(f"step {i + 1}"):
             history.append(step())
             torch.cuda.synchronize()
-    train_launches = dict(LAUNCHES)
     want = {k: n * DATAGEN_STEPS for k, n in LAUNCHES_PER_STEP.items()}
     if train_launches != want:
         raise AssertionError(f"datagen train steps launched {train_launches}, expected {want}")
     trace_dir = Path(tmp) / "trace"
-    reset_launches()
-    with maybe_trace(str(trace_dir)):
+    with maybe_trace(str(trace_dir)), record() as rec:
         history.append(step())
         torch.cuda.synchronize()
-    trace_launches = dict(LAUNCHES)
+    trace_launches = conv_launches(rec)
     if trace_launches != LAUNCHES_PER_STEP:
         raise AssertionError(f"the traced step launched {trace_launches}")
     traces = sorted(trace_dir.glob("trace-*.json"))
@@ -3503,13 +3288,7 @@ def phase_datagen(smi, tmp):
     missing = [k for k in DATAGEN_TRACE_KERNELS if not any(k in n for n in names_in_trace)]
     if missing:
         raise AssertionError(f"the trace {traces[0].name} names no {missing}")
-    for i, m in enumerate(history):
-        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
-        if bad:
-            raise AssertionError(f"datagen step {i + 1}: non-finite {bad}")
-        nonzero = {k: float(v) for k, v in m.items() if k.startswith("counters/") and float(v) != 0}
-        if nonzero:
-            raise AssertionError(f"datagen step {i + 1}: capacity counters nonzero: {nonzero}")
+    _check_steps("datagen ", history)
     summary = timer.summary()
     step_ms = [summary[f"step {i + 1}"] for i in range(DATAGEN_STEPS)]
     print(f"[datagen train] B={DATAGEN_BATCH} ms per step (StepTimer around a synchronize): "
@@ -3547,159 +3326,23 @@ TOOLS_OBJ_JITTER = 2e-3             # std of the OBJ's seeded jitter
 TOOLS_OBJ_SEED = 14
 
 
-def reference_state_dict(sd, channels, block_repeat=2, spatial_order="xyz"):
-    """The inverse of train/ckpt_convert.convert_reference_state_dict: the
-    port's state_dict -> the reference's (spconv / Lightning) names and
-    layouts, float32 CPU tensors.  SubMConv3d / SparseConv3d /
-    SparseInverseConv3d kernels (k^3, in, out) -> (out, k, k, k, in), a
-    shortcut (in, out) -> (out, 1, 1, 1, in), nn.Linear and BatchNorm
-    tensors as they are; the score and NPCS branches only where the port's
-    state_dict has them.  Every tensor of `sd` must be written."""
-    import numpy as np
-    import torch
-
-    src = {k: v.detach().cpu().numpy() for k, v in sd.items()}
-    out, used = {}, set()
-    inverse = (3, 2, 1, 0, 4) if spatial_order == "zyx" else (3, 0, 1, 2, 4)
-
-    def take(name):
-        used.add(name)
-        return src[name]
-
-    def put(name, value):
-        out[name] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
-
-    def conv(port, ref):
-        w = take(port)
-        k = {27: 3, 8: 2}[w.shape[0]]
-        w = np.transpose(w, (0, 2, 1)).reshape(k, k, k, w.shape[2], w.shape[1])
-        put(ref, np.transpose(w, inverse))
-
-    def linear(port, ref):
-        for leaf in ("weight", "bias"):
-            put(f"{ref}.{leaf}", take(f"{port}.{leaf}"))
-
-    def bn(port, ref):
-        for leaf in ("weight", "bias", "running_mean", "running_var"):
-            put(f"{ref}.{leaf}", take(f"{port}.{leaf}"))
-
-    def resblock(port, ref):
-        conv(f"{port}.conv1.kernel", f"{ref}.conv1.0.weight")
-        bn(f"{port}.bn1", f"{ref}.conv1.1")
-        conv(f"{port}.conv2.kernel", f"{ref}.conv2.0.weight")
-        bn(f"{port}.bn2", f"{ref}.conv2.1")
-        if f"{port}.shortcut_kernel" in src:
-            w = take(f"{port}.shortcut_kernel")
-            put(f"{ref}.shortcut.0.weight", w.T.reshape(w.shape[1], 1, 1, 1, w.shape[0]))
-            bn(f"{port}.shortcut_bn", f"{ref}.shortcut.1")
-
-    def ublock(port, ref, levels):
-        for r in range(block_repeat):
-            resblock(f"{port}.enc{r}", f"{ref}.encoder_blocks.{r}")
-        if levels > 1:
-            conv(f"{port}.down_kernel", f"{ref}.downsample.0.weight")
-            bn(f"{port}.down_bn", f"{ref}.downsample.1")
-            ublock(f"{port}.ublock", f"{ref}.ublock", levels - 1)
-            conv(f"{port}.up_kernel", f"{ref}.upsample.0.weight")
-            bn(f"{port}.up_bn", f"{ref}.upsample.1")
-            for r in range(block_repeat):
-                resblock(f"{port}.dec{r}", f"{ref}.decoder_blocks.{r}")
-
-    def sparse_unet(name, levels, without_stem):
-        if without_stem:
-            bn(f"{name}.stem_bn", f"{name}.stem.0")
-        else:
-            conv(f"{name}.stem_conv.kernel", f"{name}.stem.0.weight")
-            bn(f"{name}.stem_bn", f"{name}.stem.1")
-        ublock(f"{name}.ublock", f"{name}.ublock", levels)
-
-    sparse_unet("backbone", len(channels), without_stem=False)
-    linear("sem_seg_head", "sem_seg_head")
-    linear("offset_mlp0", "offset_head.0")
-    bn("offset_bn", "offset_head.1")
-    linear("offset_mlp1", "offset_head.3")
-    for unet, head in (("score_unet", "score_head"), ("npcs_unet", "npcs_head")):
-        if f"{head}.weight" in src:
-            sparse_unet(unet, 2, without_stem=True)
-            linear(head, head)
-    left = sorted(set(src) - used)
-    if left:
-        raise ValueError(f"reference_state_dict: {len(left)} tensors not written: {left[:5]}")
-    return out
-
-
-def write_reference_ckpt(path, sd, channels, block_repeat=2, spatial_order="xyz"):
-    """`sd` as the reference's Lightning checkpoint, {"state_dict": ...}."""
-    import torch
-
-    torch.save({"state_dict": reference_state_dict(sd, channels, block_repeat, spatial_order)},
-               str(path))
-
-
-def write_obj(path, xyz, rgb):
-    """'v x y z r g b' lines, as tools/visu.load_obj_points reads them."""
-    import numpy as np
-
-    with open(path, "w") as f:
-        f.write("# seeded jitter of assets/bench_cloud.npz\n")
-        np.savetxt(f, np.concatenate([xyz, rgb], axis=1), fmt="v %.6f %.6f %.6f %.6f %.6f %.6f")
-
-
-class CallProbe:
-    """Replaces attribute `name` of `owner` for the length of a `with`
-    block by a wrapper that times each call between two synchronizes and
-    reads the subm-conv counts (not reset) around it; keeps each call's
-    result, and with `keep_args` its arguments."""
-
-    def __init__(self, owner, name, keep_args=False):
-        self.owner, self.name, self.records, self.keep_args = owner, name, [], keep_args
-
-    def __enter__(self):
-        import torch
-
-        from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES
-
-        self.saved = getattr(self.owner, self.name)
-        fn = self.saved
-
-        def wrapper(*args, **kw):
-            torch.cuda.synchronize()
-            before = dict(LAUNCHES)
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            self.records.append(dict(ms=(time.perf_counter() - t0) * 1e3, result=out,
-                                     launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
-            if self.keep_args:
-                self.records[-1].update(args=args, kw=kw)
-            return out
-
-        setattr(self.owner, self.name, wrapper)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.owner, self.name, self.saved)
-
-
 def tools_parity(tag, argv, run_dir, cfg, smi, kind):
-    """eval_parity.main(argv) in its own directory under a FitProbe: every
+    """eval_parity.main(argv) in its own directory under a Probe: every
     eval metric name logged (the recalls of absent classes aside) and
     finite, 53 `kind` launches and no other per eval batch.  Returns
     (metrics, probe, seconds)."""
     import math
 
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
     from gapartnet_tpu_torch.tools import eval_parity
     from gapartnet_tpu_torch.train import trainer
 
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True)
-    reset_launches()
     t0 = time.perf_counter()
-    with contextlib.chdir(run_dir), FitProbe() as probe:
+    with contextlib.chdir(run_dir), Probe().trainer() as probe:
         metrics = eval_parity.main(argv)
     seconds = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = probe.launches
     lines = _metric_lines(run_dir / "parity_metrics.jsonl")
     if len(lines) != 1:
         raise AssertionError(f"{tag}: {len(lines)} lines in parity_metrics.jsonl")
@@ -3752,13 +3395,11 @@ def phase_tools(smi, last, tmp):
 
     from gapartnet_tpu_torch.entry import BENCH_CLOUD
     from gapartnet_tpu_torch.infer import api
-    from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
-    from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
-    from gapartnet_tpu_torch.ops.subm_conv import reset_launches
+    import smoke_parity as parity
     from gapartnet_tpu_torch.structures import PointCloudBatch
     from gapartnet_tpu_torch.tools import eval_parity
     from gapartnet_tpu_torch.tools import visu as visu_tool
-    from gapartnet_tpu_torch.train import trainer
+    from gapartnet_tpu_torch.train import ckpt_convert, trainer
     from gapartnet_tpu_torch.utils import visu
 
     tmp = Path(tmp)
@@ -3772,7 +3413,7 @@ def phase_tools(smi, last, tmp):
             "--clustering", "exact", "--device", "cuda"]
     cfg = eval_parity.build_config(eval_parity.parse_args(argv))
     trained = trainer.CkptManager.restore(str(last))["model"]
-    write_reference_ckpt(ref_ckpt, trained, cfg.model.channels, cfg.model.block_repeat)
+    ckpt_convert.write_reference_ckpt(ref_ckpt, trained, cfg.model.channels, cfg.model.block_repeat)
     back = eval_parity.load_weights(str(ref_ckpt), cfg)
     if sorted(back) != sorted(trained):
         raise AssertionError(f"round trip: keys differ: {sorted(set(back) ^ set(trained))[:5]}")
@@ -3792,9 +3433,7 @@ def phase_tools(smi, last, tmp):
     *_, pair_raw = trainer._iter_batches(datasets["val"], TOOLS_COMPARE_BATCH, drop_last=False)
     model = eval_parity.build_model(cfg, back, "cuda")
     batch = PointCloudBatch.from_numpy(raw, "cuda")
-    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg.model)
-    hier = build_hierarchy(keys, nvox, cfg.model.input_capacities(),
-                           extent=cfg.model.input_grid_extent)
+    hier = hierarchy_of(cfg.model, batch)
     print(f"[tools parity kernel] the tool's capacities {cfg.model.input_capacities()}, extent "
           f"{cfg.model.input_grid_extent}; val batch voxels per level "
           f"{[lv.num_voxels.tolist() for lv in hier.levels]}")
@@ -3819,17 +3458,17 @@ def phase_tools(smi, last, tmp):
     n = len(bench["xyz"])
     pick = np.concatenate([np.arange(n), rng.choice(n, TOOLS_OBJ_EXTRA, replace=False)])
     obj = tmp / "bench_jitter.obj"
-    write_obj(obj, bench["xyz"][pick] + rng.normal(0, TOOLS_OBJ_JITTER, (len(pick), 3)),
-              bench["rgb"][pick])
+    visu_tool.write_obj(obj, bench["xyz"][pick] + rng.normal(0, TOOLS_OBJ_JITTER, (len(pick), 3)),
+                        bench["rgb"][pick])
     cpu = api.GAPartNetInference(ckpt_path=str(last), device="cpu")
     visu_numbers = {}
     for what, kw in (("npz", dict(input=str(BENCH_CLOUD))), ("obj", dict(obj=str(obj)))):
         tag = f"tools visu {what}"
-        reset_launches()
-        with CallProbe(api.GAPartNetInference, "_request") as requests, \
-                CallProbe(api, "fps_downsample") as fps:
+        with Probe() as probe:
+            requests = probe.wrap(api.GAPartNetInference, "_request", counted=True, keep=True)
+            fps = probe.wrap(api, "fps_downsample")
             r = visu_tool.run(ckpt=str(last), device="cuda", **kw)
-        (req,) = requests.records
+        (req,) = requests
         if req["launches"] != launch_counts(fwd=CONVS_PER_FORWARD):
             raise AssertionError(f"{tag}: predict launched {req['launches']}")
         counters = {k: int(v.sum()) for k, v in req["result"].out.counters.items()}
@@ -3838,7 +3477,7 @@ def phase_tools(smi, last, tmp):
               f"{r.result.proposal_classes.tolist()}; counters {counters}  ({smi})")
         visu_numbers[what] = dict(predict_ms=req["ms"], launches=req["launches"]["fwd"])
         if what == "obj":
-            (f,) = fps.records
+            (f,) = fps
             xyz = visu_tool.load_obj_points(str(obj))[:, :3]
             t0 = time.perf_counter()
             idx_cpu = api.fps_downsample(xyz, cpu.cfg.max_points, device="cpu")
@@ -3850,9 +3489,9 @@ def phase_tools(smi, last, tmp):
                                      f"{int((r.index != idx_cpu).sum())} of {len(idx_cpu)}")
             print(f"[{tag}] FPS indices identical on the card and the CPU")
             visu_numbers[what]["fps_ms"] = f["ms"]
-        elif fps.records:
+        elif fps:
             raise AssertionError(f"{tag}: a dataset cloud went through FPS")
-        compare_requests(tag, req["result"], cpu, r.points)
+        parity.compare_requests(tag, req["result"], cpu, r.points)
         out_dir = tmp / "visu_out"
         if visu.have_cv2():
             panels = visu_tool.write_panels(str(out_dir), r)
@@ -3975,10 +3614,11 @@ def phase_sustained(smi, tmp):
     import torch
 
     from gapartnet_tpu_torch.datagen.synthetic import generate_assets
-    from gapartnet_tpu_torch.ops.subm_conv import LAUNCHES, reset_launches
+    from gapartnet_tpu_torch.models.norm import bn_ulp_probe
     from gapartnet_tpu_torch.tools import confusion_diag, margin_diag, proposal_diag, valley_probe
     from gapartnet_tpu_torch.tools import sustained_run as sr
     from gapartnet_tpu_torch.train import trainer
+    import smoke_parity as parity
 
     tmp = Path(tmp)
     t = time.perf_counter()
@@ -4030,21 +3670,21 @@ def phase_sustained(smi, tmp):
                 (sr, "render_views", counted_render_views),
                 (sr, "zoom_allocation", recorded_zoom_allocation), (trainer, "fit", recorded_fit)):
             patches.enter_context(unittest.mock.patch.object(owner, name, value))
-        reset_launches()
         t0 = time.perf_counter()
-        with FitProbe() as probe, CallProbe(trainer, "test") as tests, \
-                CallProbe(sr, "build_dataset") as build, \
-                CallProbe(sr, "append_zoom_views") as zoom:
+        with Probe().trainer() as probe:
+            tests = probe.wrap(trainer, "test")
+            build = probe.wrap(sr, "build_dataset")
+            zoom = probe.wrap(sr, "append_zoom_views")
             sr.main(argv)
         main_s = time.perf_counter() - t0
-        main_launches = dict(LAUNCHES)
+        main_launches = probe.launches
         plan = sustained_view_plan({p.name: str(p) for p in (data / "synth_assets").iterdir()})
     print(f"[sustained] sustained_run.main {' '.join(argv[4:])}: {main_s:.1f} s in all; "
-          f"renders {build.records[0]['ms'] / 1e3:.1f} s for {sum(rendered)} distant views, "
-          f"{zoom.records[0]['ms'] / 1e3:.1f} s for {sum(sum(c for _, c in a) for a in zoom_allocs)} "
+          f"renders {build[0]['ms'] / 1e3:.1f} s for {sum(rendered)} distant views, "
+          f"{zoom[0]['ms'] / 1e3:.1f} s for {sum(sum(c for _, c in a) for a in zoom_allocs)} "
           f"close-ups (host render, FPS on the card); fits "
           f"{', '.join('%.1f' % f['s'] for f in fits)} s; tests "
-          f"{', '.join('%.1f' % (r['ms'] / 1e3) for r in tests.records)} s  ({smi})")
+          f"{', '.join('%.1f' % (r['ms'] / 1e3) for r in tests)} s  ({smi})")
     t = lap("phase 15 (sustained_run.main)", t)
 
     # (a) the data tree
@@ -4091,8 +3731,8 @@ def phase_sustained(smi, tmp):
         print(f"[sustained] (d) test[{tag}]: {len(m)} metrics, all finite; {len(counters)} "
               f"counters all 0; mean_mAP {m['monitor_metrics/mean_mAP']:.2f}, val/pixel_accu "
               f"{m['val/pixel_accu']:.2f}, val/miou {m['val/miou']:.2f}")
-    if len(tests.records) != 2 or not (wd / "test_metrics.json").exists():
-        raise AssertionError(f"sustained (d): {len(tests.records)} tests, test_metrics.json "
+    if len(tests) != 2 or not (wd / "test_metrics.json").exists():
+        raise AssertionError(f"sustained (d): {len(tests)} tests, test_metrics.json "
                              f"{(wd / 'test_metrics.json').exists()}")
 
     # the launches of every train step and eval forward of the run
@@ -4125,28 +3765,29 @@ def phase_sustained(smi, tmp):
     conf_argv = ["--data", str(data), "--ckpt", ckpt, "--splits", "val", "--limit",
                  str(SUSTAINED_CONFUSION_LIMIT)]
     t0 = time.perf_counter()
-    with CallProbe(trainer, "eval_step") as card_views:
+    with Probe() as conf:
+        card_views = conf.wrap(trainer, "eval_step", counted=True, keep=True)
         card_conf = confusion_diag.main(conf_argv + ["--workdir", str(tmp / "conf_card"),
                                                      "--device", "cuda"])
     conf_s = time.perf_counter() - t0
+    with Probe() as tables:
+        t0 = time.perf_counter()
+        table = proposal_diag.main(["--workdir", str(wd), "--data", str(data), "--split", "val",
+                                    "--device", "cuda"])
+        proposal_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = margin_diag.main(["--workdir", str(wd), "--data", str(data), "--device", "cuda"])
+        margin_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    table = proposal_diag.main(["--workdir", str(wd), "--data", str(data), "--split", "val",
-                                "--device", "cuda"])
-    proposal_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rows = margin_diag.main(["--workdir", str(wd), "--data", str(data), "--device", "cuda"])
-    margin_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with FitProbe() as vprobe:
+    with Probe().trainer() as vprobe:
         trajectory = valley_probe.main(["--data", str(data), "--workdir", str(tmp / "valley"),
                                         "--tag", "chip", "--epochs", str(VALLEY_EPOCHS),
                                         "--device", "cuda"])
     valley_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    diag_launches = {k: LAUNCHES[k] - main_launches[k] for k in LAUNCHES}
+    diag_launches = {k: conf.launches[k] + tables.launches[k] + vprobe.launches[k] for k in KINDS}
     _check_launches("valley step", vprobe.steps, lambda r: SUSTAINED_LAUNCHES_PER_STEP[r["key"]])
-    _check_launches("confusion view", card_views.records, lambda r: SUSTAINED_EVAL_LAUNCHES)
-    print(f"[sustained diag] on the card: confusion_diag {conf_s:.1f} s ({len(card_views.records)} "
+    _check_launches("confusion view", card_views, lambda r: SUSTAINED_EVAL_LAUNCHES)
+    print(f"[sustained diag] on the card: confusion_diag {conf_s:.1f} s ({len(card_views)} "
           f"views at B = 1, sem only), proposal_diag {proposal_s:.1f} s, margin_diag "
           f"{margin_s:.1f} s, valley_probe {valley_s:.1f} s ({len(vprobe.steps)} steps); "
           f"launches {diag_launches}  ({smi})")
@@ -4155,23 +3796,24 @@ def phase_sustained(smi, tmp):
     # steps once more with every BatchNorm output moved by +-1 fp32 ulp (the
     # bf16 allowance)
     t0 = time.perf_counter()
-    with CallProbe(trainer, "eval_step", keep_args=True) as cpu_views:
+    with Probe() as cpu_probe:
+        cpu_views = cpu_probe.wrap(trainer, "eval_step", keep=True)
         cpu_conf = confusion_diag.main(conf_argv + ["--workdir", str(tmp / "conf_cpu"),
                                                     "--device", "cpu"])
     with bn_ulp_probe(NET_PROBES[0]):
-        probes = [trainer.eval_step(*r["args"], **r["kw"]) for r in cpu_views.records]
+        probes = [trainer.eval_step(*r["args"], **r["kw"]) for r in cpu_views]
     print(f"[sustained diag] confusion_diag on the CPU, and its views' BatchNorm-ulp probe: "
           f"{time.perf_counter() - t0:.1f} s")
     flips = 0
-    for i, (g, c, p) in enumerate(zip(card_views.records, cpu_views.records, probes)):
+    for i, (g, c, p) in enumerate(zip(card_views, cpu_views, probes)):
         g, c = g["result"], c["result"]
         allow = _probe_allow("sem_logits", [p], c)
-        tol = FORWARD_RTOL * float(c.sem_logits.abs().max()) + allow
-        flips += _near_ties(f"confusion view {i}", g.sem_preds.cpu(), c.sem_logits.cpu(), tol=tol)
+        tol = parity.FORWARD_RTOL * float(c.sem_logits.abs().max()) + allow
+        flips += parity.near_ties(f"confusion view {i}", g.sem_preds.cpu(), c.sem_logits.cpu(), tol=tol)
     (agg_g, rows_g), = card_conf.values()
     (agg_c, rows_c), = cpu_conf.values()
     moved = int(np.abs(agg_g - agg_c).sum())
-    if len(card_views.records) != SUSTAINED_CONFUSION_LIMIT or moved > 2 * flips or (
+    if len(card_views) != SUSTAINED_CONFUSION_LIMIT or moved > 2 * flips or (
             not flips and [r[:2] for r in rows_g] != [r[:2] for r in rows_c]):
         raise AssertionError(f"sustained (f): confusion card vs CPU: {moved} entries moved by "
                              f"{flips} near-tie flips")
@@ -4212,7 +3854,7 @@ def phase_sustained(smi, tmp):
     err = fit_kernels(cfg_b, model_b, train_raw, val_raw, tag="sustained")
     print(f"[sustained] (e) bf16 kernels vs plain at the run's shapes: max|d| {err}")
     lap("phase 15e (kernels)", t)
-    launches = {k: main_launches[k] + diag_launches[k] for k in LAUNCHES}
+    launches = {k: main_launches[k] + diag_launches[k] for k in KINDS}
     return dict(launches=launches, steps=n_steps, max_abs_err=err)
 
 
@@ -4253,7 +3895,7 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
     visu's requests, added to the forward's `launches`."""
     flops = sum(r["flops"] * r["per_forward"] for r in rows)
     nbytes = sum(r["bytes"] * r["per_forward"] for r in rows)
-    inference_bound, inference_by = _bound(flops, nbytes)
+    inference_bound, inference_by = roofline(flops, nbytes)
     inference = {
         "launches": launches,
         "ms": sum(r["ms"] * r["per_forward"] for r in rows),
@@ -4261,7 +3903,7 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
         "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in rows),
         "bound_ms": inference_bound,
         "bound_by": inference_by,
-        "bound_fp32_ms": _bound(flops, nbytes, PEAK_FP32_FLOPS)[0],
+        "bound_fp32_ms": roofline(flops, nbytes, PEAK_FP32_FLOPS)[0],
         "max_abs_err": max(r["max_abs_err"] for r in rows + entry_rows),
         "work": "the 53 backbone convs of one bench-cloud forward (B = 1)",
         "shapes": [
@@ -4280,7 +3922,7 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
     for kind, (kname, source, replaces) in sources.items():
         kflops = sum(r["flops"] * r["per_step"][kind] for r in train_rows)
         kbytes = sum(r["bytes"] * r["per_step"][kind] for r in train_rows)
-        bound, by = _bound(kflops, kbytes)
+        bound, by = roofline(kflops, kbytes)
         entry_ = {
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_launches[kind],
@@ -4290,7 +3932,7 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
                                    "device_ms", "per"),
             "plain_ms": sum(r[kind]["plain_ms"] * r["per_step"][kind] for r in train_rows),
             "bound_ms": bound, "bound_by": by,
-            "bound_fp32_ms": _bound(kflops, kbytes, PEAK_FP32_FLOPS)[0], "library_ms": None,
+            "bound_fp32_ms": roofline(kflops, kbytes, PEAK_FP32_FLOPS)[0], "library_ms": None,
             "per_step": LAUNCHES_PER_STEP[kind],
             "work": f"the {LAUNCHES_PER_STEP[kind]} {kind} launches of one B = {TRAIN_BATCH} "
                     f"train step ({TIMED_STEPS} steps counted)",
@@ -4332,7 +3974,7 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
                 "fit_steps": [r["fit"]["steps"] for r in dp],
                 "max_abs_err": max(r["step"]["max_abs_err"][kind] for r in dp),
                 "work": f"{DP_WORLD} gloo ranks on one card, B = {DP_BATCH} each: "
-                        f"{DP_TIMED_STEPS} timed train steps per rank (all stages), then "
+                        f"{DP_TIMED_STEPS} recorded train steps per rank (all stages), then "
                         f"trainer.fit for one epoch of {DP_FIT_STEPS} steps per rank",
             }
             entry_["max_abs_err"] = max(entry_["max_abs_err"], entry_["dp"]["max_abs_err"])
@@ -4346,7 +3988,6 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
                 "pointnet_launches": pointnet["train_launches"][kind],
                 "pointnet_per_step": POINTNET_LAUNCHES_PER_STEP[kind],
                 "pointnet_steps": POINTNET_STEPS,
-                "pointnet_step_ms": pointnet["step_ms"],
                 "max_abs_err": pointnet["max_abs_err"][kind],
                 "work": f"{POINTNET_STEPS} PointNet train steps at B = {TRAIN_BATCH} (the proposal "
                         f"UNets' convs); {EXACT_FORWARDS} exact-clustering forwards and "
@@ -4367,7 +4008,7 @@ def kernel_line(rows, entry_rows, launches, train_rows, train_launches, api=None
                 "per_step": LAUNCHES_PER_STEP[kind],
                 "steps": DATAGEN_STEPS + 1, "step_ms": datagen["step_ms"],
                 "max_abs_err": datagen["max_abs_err"][kind],
-                "work": f"{DATAGEN_STEPS} timed and 1 traced train steps at B = {DATAGEN_BATCH} on "
+                "work": f"{DATAGEN_STEPS} recorded and 1 traced train steps at B = {DATAGEN_BATCH} on "
                         "ingested synthetic-asset views; one predict_depth on a rendered 800x800 "
                         "view (the 53 backbone convs)",
             }
@@ -4437,10 +4078,8 @@ def main():
     try:
         from gapartnet_tpu_torch.config import GAPartNetConfig
         from gapartnet_tpu_torch.entry import bench_cloud_setup, train_setup, use_fp32_math
-        from gapartnet_tpu_torch.models.gapartnet import prepare_input_grid
         from gapartnet_tpu_torch.ops import ccl
         from gapartnet_tpu_torch.ops import subm_conv as sc
-        from gapartnet_tpu_torch.ops.sparse_conv import build_hierarchy
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         sys.exit(1)
@@ -4495,8 +4134,7 @@ def main():
           f"{cfg.input_grid_extent}, node cap {cfg.hash_node_capacity}, cand cap "
           f"{cfg.hash_cand_cap}, degree {cfg.hash_max_degree}, dense pool "
           f"{cfg.dense_grid_capacity}")
-    keys, _, nvox, _ = prepare_input_grid(batch.points, batch.point_mask, cfg)
-    hierarchy = build_hierarchy(keys, nvox, cfg.input_capacities(), extent=cfg.input_grid_extent)
+    hierarchy = hierarchy_of(cfg, batch)
     print(f"[setup] voxels per level {[int(lv.num_voxels[0]) for lv in hierarchy.levels]}")
     rows = phase_kernels(cfg, hierarchy, "cuda")
     t = lap("phase 2 (kernels vs plain)", t)
@@ -4515,8 +4153,7 @@ def main():
 
     # phase 5: training, the second slice's main path, on B = 8 rotated clouds
     tcfg, tbatch, tsem, toff = train_setup(GAPartNetConfig(), batch_size=TRAIN_BATCH, device="cuda")
-    tkeys, _, tnvox, _ = prepare_input_grid(tbatch.points, tbatch.point_mask, tcfg)
-    thier = build_hierarchy(tkeys, tnvox, tcfg.input_capacities(), extent=tcfg.input_grid_extent)
+    thier = hierarchy_of(tcfg, tbatch)
     print(f"[train setup] B={TRAIN_BATCH} capacities {tcfg.input_capacities()}, extent "
           f"{tcfg.input_grid_extent}, node cap {tcfg.hash_node_capacity}, cand cap "
           f"{tcfg.hash_cand_cap}, degree {tcfg.hash_max_degree}; voxels per level (max over B) "
@@ -4544,9 +4181,8 @@ def main():
                           + bf16_kernel_entries(numbers)}))
         print(smi)
         return
-    step, train_launches, step_times = phase_train(tcfg, tbatch, tsem, toff, smi)
-    phase_profile(step, statistics.median(step_times), tag="train profile",
-                  what=f"one train step (B={TRAIN_BATCH})")
+    step, train_launches, _ = phase_train(tcfg, tbatch, tsem, toff, smi, timed=False)
+    phase_profile(step, tag="train profile", what=f"one train step (B={TRAIN_BATCH})")
     t = lap("phase 5 (training)", t)
 
     # phase 6: one train step at B = 2, card vs CPU

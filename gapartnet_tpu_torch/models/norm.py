@@ -16,6 +16,7 @@ rank normalizes with, and moves its running statistics towards, the
 statistics of the whole global batch.
 """
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -72,3 +73,23 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
         return (x - mean) * (inv * self.weight) + self.bias
+
+
+@contextlib.contextmanager
+def bn_ulp_probe(seed):
+    """Within the block every MaskedBatchNorm output of the port moves by a
+    seeded -1, 0 or +1 fp32 ulp of its magnitude (another fp32 rounding,
+    as a fused multiply-add or a sum in another order gives)."""
+    gen = torch.Generator().manual_seed(seed)
+    orig = MaskedBatchNorm.forward
+
+    def moved(self, x, mask=None):
+        y = orig(self, x, mask)
+        r = torch.randint(-1, 2, y.shape, generator=gen).to(device=y.device, dtype=y.dtype)
+        return y + r * torch.finfo(torch.float32).eps * y.abs().detach()
+
+    MaskedBatchNorm.forward = moved
+    try:
+        yield
+    finally:
+        MaskedBatchNorm.forward = orig

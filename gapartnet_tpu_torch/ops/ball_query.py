@@ -26,18 +26,17 @@ d2 at most, and only the pairs within BAND of r2 (about one in a million)
 are decided by the exact chain, gathered by one `nonzero` (a host sync
 per tile).  Within a tile a row's rank among its hits is a cumulative
 sum, and the hits of rank <= K are scattered into their slots.  Plain
-PyTorch: no kernel of its own.  `STATS` counts calls, tiles and the pairs
-decided by the exact chain.
+PyTorch: no kernel of its own.
 
 Spans and counters (utils/profiling.py): `cluster:ball_query` around each
-call; the host syncs `sync:ball_query_constant` (r2 copied to the device),
-`sync:ball_query_valid` (the gather of the valid points) and
-`sync:ball_query_band` (each tile's band `nonzero`); the counters
-`ball_query_tiles`, `ball_query_band_pairs` (the pairs the exact chain
-decides) and, reduced on the device and only while a recording is on,
-`ball_query_full_rows` (rows whose hits reached K), `ball_query_hits` (the
-neighbours listed) and `ball_query_index_sum` (the sum of their indices,
-which tells the first K from any other K of a row's hits).
+call (its `n` counts the calls); the host syncs `sync:ball_query_constant`
+(r2 copied to the device), `sync:ball_query_valid` (the gather of the
+valid points) and `sync:ball_query_band` (each tile's band `nonzero`); the
+counters `ball_query_tiles`, `ball_query_band_pairs` (the pairs the exact
+chain decides) and, reduced on the device and only while a recording is
+on, `ball_query_full_rows` (rows whose hits reached K), `ball_query_hits`
+(the neighbours listed) and `ball_query_index_sum` (the sum of their
+indices, which tells the first K from any other K of a row's hits).
 """
 
 import numpy as np
@@ -52,7 +51,6 @@ JAX_QUERY_BLOCK = 1024
 # relative half-width of the band around r2 that the exact chain decides:
 # 2^6 times the largest gap between the two sums (three roundings each)
 BAND = 2.0 ** -18
-STATS = {"calls": 0, "tiles": 0, "exact_pairs": 0}
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -95,7 +93,6 @@ def within_radius(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor, y_first: b
     ok = d2 <= r2
     with span("sync:ball_query_band"):
         near = torch.nonzero((d2 - r2).abs() <= r2 * BAND, as_tuple=True)
-    STATS["exact_pairs"] += int(near[0].numel())
     count("ball_query_band_pairs", int(near[0].numel()))
     ok[near] = _fma_chain(dx[near], dy[near], dz[near], y_first) <= r2
     return ok
@@ -130,10 +127,8 @@ def ball_query_single(
         neighbor_idx = torch.full((n, k), -1, dtype=torch.int32, device=dev)
         counts = torch.zeros((n,), dtype=torch.int32, device=dev)
         qb = max(1, TILE_ELEMENTS // max(m, 1))
-        STATS["calls"] += 1
         for q0 in range(0, m, qb):
             q1 = min(m, q0 + qb)
-            STATS["tiles"] += 1
             count("ball_query_tiles", 1)
             ok = within_radius(xyz[q0:q1], xyz, r2, y_first=n <= JAX_QUERY_BLOCK)
             ok &= lab[q0:q1, None] == lab[None, :]

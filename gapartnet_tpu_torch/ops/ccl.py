@@ -23,7 +23,7 @@ iterations).  On a CUDA tensor it makes one launch of
 csrc/ccl_exact.cu, which runs the whole loop on the device and gives
 bitwise the plain loop's labels, iteration count and flag, with no host
 sync: the count and the flag stay on the device, read by the recorder
-only when a recording ends (counted in `LAUNCHES` and the counter
+only when a recording ends (each launch counted as
 `ccl_exact_launches`).  The kernel replaces no Pallas kernel (the JAX CCL
 is an XLA `while_loop`).  By bytes it is bound by the listed neighbours,
 read once an iteration (3.1 MB on the bench cloud's shifted set), and the
@@ -39,7 +39,8 @@ phase only lowers labels).
 
 The library is built at first use with nvcc by ops/subm_conv.py's route
 (`build((SOURCE,))`), so configurations that never cluster exactly build
-nothing more.  `STATS` counts calls, and the plain loop's iterations.
+nothing more.  A recording counts the iterations of either route
+(`ccl_exact_iterations`); a call is the `n` of its `cluster:ccl` span.
 """
 
 import ctypes
@@ -52,8 +53,6 @@ from gapartnet_tpu_torch.ops.subm_conv import CSRC_DIR, _device, _on_card, build
 from gapartnet_tpu_torch.utils.profiling import count, span
 
 SOURCE = CSRC_DIR / "ccl_exact.cu"
-STATS = {"calls": 0, "iterations": 0}
-LAUNCHES = 0
 
 
 def connected_components_reference(
@@ -92,7 +91,6 @@ def connected_components_reference(
                 done = torch.equal(labels, prev)
             if done:
                 break
-        STATS["iterations"] += 1
         iterations += 1
         prev = labels
         labels = propagate(labels)
@@ -127,7 +125,6 @@ def connected_components_kernel(
     """One launch of csrc/ccl_exact.cu on CUDA tensors: (N, K) int32
     neighbour lists, (N,) bool -> ((N,) int32 labels, () int32 iteration
     count, () int32 flag), all on the device; no host sync."""
-    global LAUNCHES
     if neighbor_idx.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError(f"ccl_exact takes int32 neighbour lists and a bool mask, got "
                         f"{neighbor_idx.dtype} and {valid.dtype}")
@@ -157,7 +154,7 @@ def connected_components_kernel(
     if rc != 0:
         msg = lib.gapartnet_cuda_error_string(rc).decode()
         raise RuntimeError(f"ccl_exact launch failed: {msg} (CUDA error {rc})")
-    LAUNCHES += 1
+    count("ccl_exact_launches", 1)
     return out[:n], out[n], out[n + 1]
 
 
@@ -175,12 +172,10 @@ def connected_components_single(
     -1 as empty, where the plain loop would still link any node listed
     after it."""
     with span("cluster:ccl"):
-        STATS["calls"] += 1
         if not _on_card(neighbor_idx, "connected_components_single"):
             return connected_components_reference(neighbor_idx, valid, max_iters)
         labels, iterations, unconverged = connected_components_kernel(
             neighbor_idx, valid, max_iters)
-        count("ccl_exact_launches", 1)
         count("ccl_exact_iterations", iterations)
         count("ccl_exact_unconverged", unconverged)
         return labels, unconverged

@@ -14,8 +14,9 @@ computes it, and not the adjoint of the forward: the two differ where the
 rulebook is not symmetric (a voxel outside the grid extent reads its
 in-extent neighbours, but they do not read it).
 
-Three wrappers launch the kernels, each counted in `LAUNCHES`
-(`subm_conv.launches` is the same dict):
+Three wrappers launch the kernels, each launch counted by
+`utils/profiling.count` under its kind's name in `LAUNCH_COUNTERS`
+(`subm_conv_fwd_launches`, ...; counted only while a recording is on):
 
   * `subm_conv_forward` -> csrc/subm_conv.cu ("fwd");
   * `subm_conv_dgrad`   -> csrc/subm_conv.cu on g, reading W tap-reversed
@@ -41,7 +42,7 @@ compute_dtype=jnp.bfloat16)`, ops/sparse_conv.py:368-380) the conv runs on
 operands rounded to bf16 with fp32 accumulation and an fp32 output, and its
 backward rounds where the JAX VJP rounds (sparse_conv.py:286-318): the
 output gradient to bf16, the dgrad's and the wgrad's fp32 results to bf16.
-Three more wrappers launch the bf16 kernels, counted as "fwd_bf16",
+Three more wrappers launch the bf16 kernels, counted as kinds "fwd_bf16",
 "dgrad_bf16" and "wgrad_bf16":
 
   * `subm_conv_forward_bf16` -> csrc/subm_conv_bf16.cu;
@@ -86,6 +87,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from gapartnet_tpu_torch.utils.profiling import count
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -96,13 +99,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 K_TAPS = 27
-LAUNCHES: Dict[str, int] = {"fwd": 0, "dgrad": 0, "wgrad": 0,
-                            "fwd_bf16": 0, "dgrad_bf16": 0, "wgrad_bf16": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+# the profiling counter of each wrapper's launches, by kind
+LAUNCH_COUNTERS = {kind: f"subm_conv_{kind}_launches" for kind in (
+    "fwd", "dgrad", "wgrad", "fwd_bf16", "dgrad_bf16", "wgrad_bf16")}
 
 
 def find_nvcc() -> str:
@@ -349,7 +348,7 @@ def _launch_forward(features, nbr, weights, counter: str, flip: bool) -> torch.T
     if rc != 0:
         msg = lib.gapartnet_cuda_error_string(rc).decode()
         raise RuntimeError(f"subm_conv {counter} launch failed: {msg} (CUDA error {rc})")
-    LAUNCHES[counter] += 1
+    count(LAUNCH_COUNTERS[counter], 1)
     return out
 
 
@@ -403,7 +402,7 @@ def subm_conv_wgrad(
     if rc != 0:
         msg = _library().gapartnet_cuda_error_string(rc).decode()
         raise RuntimeError(f"subm_conv wgrad launch failed: {msg} (CUDA error {rc})")
-    LAUNCHES["wgrad"] += 1
+    count(LAUNCH_COUNTERS["wgrad"], 1)
     return dw
 
 
@@ -546,7 +545,7 @@ def _launch_forward_bf16(x: torch.Tensor, nbr: torch.Tensor, weights: torch.Tens
     if rc != 0:
         msg = lib.gapartnet_cuda_error_string(rc).decode()
         raise RuntimeError(f"subm_conv {counter} launch failed: {msg} (CUDA error {rc})")
-    LAUNCHES[counter] += 1
+    count(LAUNCH_COUNTERS[counter], 1)
     return out
 
 
@@ -608,7 +607,7 @@ def subm_conv_wgrad_bf16(
     if rc != 0:
         msg = _bf16_library().gapartnet_cuda_error_string(rc).decode()
         raise RuntimeError(f"subm_conv wgrad_bf16 launch failed: {msg} (CUDA error {rc})")
-    LAUNCHES["wgrad_bf16"] += 1
+    count(LAUNCH_COUNTERS["wgrad_bf16"], 1)
     return dw
 
 
@@ -658,7 +657,7 @@ def subm_conv(
     """features (B, V, Cin) f32, nbr (B, 27, V) int32, weights (27, Cin, Cout)
     f32 -> (B, V, Cout) f32, differentiable in features and weights.  CPU
     tensors take the plain versions; CUDA tensors launch the kernels (counted
-    in `subm_conv.launches`) or raise.  `compute_dtype` None (or float32)
+    as `LAUNCH_COUNTERS` says) or raise.  `compute_dtype` None (or float32)
     computes in fp32; torch.bfloat16 rounds the operands to bf16 and runs
     the bf16 kernels, as the JAX `compute_dtype=jnp.bfloat16`."""
     _check(features, nbr, weights)
@@ -671,6 +670,3 @@ def subm_conv(
     if grad:
         return _SubmConvBf16.apply(features, nbr, weights)
     return subm_conv_forward_bf16(features, nbr, weights)
-
-
-subm_conv.launches = LAUNCHES

@@ -39,6 +39,13 @@ def load_obj_points(path: str) -> np.ndarray:
     return np.asarray(pts, np.float32)
 
 
+def write_obj(path, xyz, rgb):
+    """'v x y z r g b' lines, as load_obj_points reads them."""
+    with open(path, "w") as f:
+        f.write("# v x y z r g b\n")
+        np.savetxt(f, np.concatenate([xyz, rgb], axis=1), fmt="v %.6f %.6f %.6f %.6f %.6f %.6f")
+
+
 class VisuRun(NamedTuple):
     """What `run` produced: the network's input cloud, the OBJ's
     normalisation and FPS indices (None for a dataset cloud), the

@@ -16,6 +16,9 @@ SparseSequential indices; the port's names follow the JAX package's tree
     nn.Linear);
   * BatchNorm weight / bias / running_mean / running_var keep their names
     (num_batches_tracked is dropped).
+
+`reference_state_dict` and `write_reference_ckpt` write the other way: the
+port's state_dict in the reference's names and layouts.
 """
 
 from typing import Dict
@@ -116,3 +119,87 @@ def load_reference_ckpt(path: str, **kw) -> Dict[str, torch.Tensor]:
     raw = torch.load(path, map_location="cpu", weights_only=False)
     sd = raw.get("state_dict", raw)
     return convert_reference_state_dict({k: v.numpy() for k, v in sd.items()}, **kw)
+
+
+def reference_state_dict(sd, channels, block_repeat=2, spatial_order="xyz"):
+    """The inverse of convert_reference_state_dict: the port's state_dict
+    -> the reference's (spconv / Lightning) names and layouts, float32 CPU
+    tensors.  SubMConv3d / SparseConv3d / SparseInverseConv3d kernels
+    (k^3, in, out) -> (out, k, k, k, in), a shortcut (in, out) -> (out, 1,
+    1, 1, in), nn.Linear and BatchNorm tensors as they are; the score and
+    NPCS branches only where the port's state_dict has them.  Every tensor
+    of `sd` must be written."""
+    src = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    out, used = {}, set()
+    inverse = (3, 2, 1, 0, 4) if spatial_order == "zyx" else (3, 0, 1, 2, 4)
+
+    def take(name):
+        used.add(name)
+        return src[name]
+
+    def put(name, value):
+        out[name] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+    def conv(port, ref):
+        w = take(port)
+        k = {27: 3, 8: 2}[w.shape[0]]
+        w = np.transpose(w, (0, 2, 1)).reshape(k, k, k, w.shape[2], w.shape[1])
+        put(ref, np.transpose(w, inverse))
+
+    def linear(port, ref):
+        for leaf in ("weight", "bias"):
+            put(f"{ref}.{leaf}", take(f"{port}.{leaf}"))
+
+    def bn(port, ref):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            put(f"{ref}.{leaf}", take(f"{port}.{leaf}"))
+
+    def resblock(port, ref):
+        conv(f"{port}.conv1.kernel", f"{ref}.conv1.0.weight")
+        bn(f"{port}.bn1", f"{ref}.conv1.1")
+        conv(f"{port}.conv2.kernel", f"{ref}.conv2.0.weight")
+        bn(f"{port}.bn2", f"{ref}.conv2.1")
+        if f"{port}.shortcut_kernel" in src:
+            w = take(f"{port}.shortcut_kernel")
+            put(f"{ref}.shortcut.0.weight", w.T.reshape(w.shape[1], 1, 1, 1, w.shape[0]))
+            bn(f"{port}.shortcut_bn", f"{ref}.shortcut.1")
+
+    def ublock(port, ref, levels):
+        for r in range(block_repeat):
+            resblock(f"{port}.enc{r}", f"{ref}.encoder_blocks.{r}")
+        if levels > 1:
+            conv(f"{port}.down_kernel", f"{ref}.downsample.0.weight")
+            bn(f"{port}.down_bn", f"{ref}.downsample.1")
+            ublock(f"{port}.ublock", f"{ref}.ublock", levels - 1)
+            conv(f"{port}.up_kernel", f"{ref}.upsample.0.weight")
+            bn(f"{port}.up_bn", f"{ref}.upsample.1")
+            for r in range(block_repeat):
+                resblock(f"{port}.dec{r}", f"{ref}.decoder_blocks.{r}")
+
+    def sparse_unet(name, levels, without_stem):
+        if without_stem:
+            bn(f"{name}.stem_bn", f"{name}.stem.0")
+        else:
+            conv(f"{name}.stem_conv.kernel", f"{name}.stem.0.weight")
+            bn(f"{name}.stem_bn", f"{name}.stem.1")
+        ublock(f"{name}.ublock", f"{name}.ublock", levels)
+
+    sparse_unet("backbone", len(channels), without_stem=False)
+    linear("sem_seg_head", "sem_seg_head")
+    linear("offset_mlp0", "offset_head.0")
+    bn("offset_bn", "offset_head.1")
+    linear("offset_mlp1", "offset_head.3")
+    for unet, head in (("score_unet", "score_head"), ("npcs_unet", "npcs_head")):
+        if f"{head}.weight" in src:
+            sparse_unet(unet, 2, without_stem=True)
+            linear(head, head)
+    left = sorted(set(src) - used)
+    if left:
+        raise ValueError(f"reference_state_dict: {len(left)} tensors not written: {left[:5]}")
+    return out
+
+
+def write_reference_ckpt(path, sd, channels, block_repeat=2, spatial_order="xyz"):
+    """`sd` as the reference's Lightning checkpoint, {"state_dict": ...}."""
+    torch.save({"state_dict": reference_state_dict(sd, channels, block_repeat, spatial_order)},
+               str(path))

@@ -51,17 +51,18 @@ from gapartnet_tpu.models.gapartnet import GAPartNetConfig as JaxConfig
 from gapartnet_tpu.ops.sparse_conv import subm_conv_apply
 from gapartnet_tpu.structures import PointCloudBatch as JaxBatch
 from gapartnet_tpu.train import loop as jloop
-from chip_smoke import bn_ulp_probe
 from gapartnet_tpu_torch.config import GAPartNetConfig
 from gapartnet_tpu_torch.models.dense_unet import ProposalUNet
 from gapartnet_tpu_torch.models.gapartnet import GAPartNet
+from gapartnet_tpu_torch.models.norm import bn_ulp_probe
 from gapartnet_tpu_torch.ops import subm_conv as sc
 from gapartnet_tpu_torch.structures import PointCloudBatch
 from gapartnet_tpu_torch.train import loop as tloop
+from gapartnet_tpu_torch.utils import profiling as tprofiling
 from gapartnet_tpu_torch.weights import params_from_jax
 from tests.test_torch_port_dense_unet import _grid as dense_grid
 from tests.test_torch_port_forward import SMALL, _random_stats
-from tests.test_torch_port_subm_conv import _grid
+from tests.test_torch_port_subm_conv import _grid, _launched
 from tests.test_torch_port_train import LOSSES, jax_jitter, port_step
 
 BF16 = torch.bfloat16
@@ -107,10 +108,10 @@ def test_bf16_conv_forward_matches_jax(cin):
     x, nbr, w, _ = _conv_case(cin, cin)
     want = np.asarray(jit_exact(lambda a, n, c: subm_conv_apply(
         a, n, c, compute_dtype=jnp.bfloat16))(x, nbr, w))
-    before = dict(sc.LAUNCHES)
-    got = sc.subm_conv(torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(w),
-                       compute_dtype=BF16)
-    assert sc.LAUNCHES == before, "the CPU path launches nothing"
+    with tprofiling.record() as rec:
+        got = sc.subm_conv(torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(w),
+                           compute_dtype=BF16)
+    assert not any(_launched(rec).values()), "the CPU path launches nothing"
     assert got.dtype == torch.float32 and got.shape == want.shape
     scale = np.abs(want).max()
     assert np.abs(got.numpy() - want).max() <= CONV_RTOL * scale
@@ -492,9 +493,9 @@ def test_bf16_entry_points():
     inf = GAPartNetInference(GAPartNetConfig(**SMALL, conv_compute_dtype="bfloat16"), seed=0,
                              auto_capacity=True, device="cpu")
     c = synthetic_cloud(np.random.RandomState(2), num_points=SMALL["max_points"], num_parts=4)
-    before = dict(sc.LAUNCHES)
-    res = inf.predict(c["points"], ransac_iters=20)
-    assert sc.LAUNCHES == before
+    with tprofiling.record() as rec:
+        res = inf.predict(c["points"], ransac_iters=20)
+    assert not any(_launched(rec).values())
     assert res.sem_preds.shape == (SMALL["max_points"],)
     assert np.isfinite(res.npcs_map).all() and np.isfinite(res.proposal_scores).all()
     assert inf.model.backbone.stem_conv.compute_dtype == BF16

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax, flax nor the JAX
-package, and neither does chip_smoke.py; every module also imports without
-PyYAML and cv2, which the card's machine lacks, and without sapien."""
+package, and neither do chip_smoke.py and smoke_parity.py; every module also
+imports without PyYAML and cv2, which the card's machine lacks, and without
+sapien."""
 
 import ast
 import subprocess
@@ -24,6 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(gapartnet_tpu_torch.__path__, "ga
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import smoke_parity
 leaked = [k for k in sys.modules if k == "gapartnet_tpu" or k.startswith("gapartnet_tpu.")]
 assert not leaked, leaked
 print(len(names))
@@ -174,7 +176,7 @@ def _imported_modules(path: Path):
 
 def test_no_forbidden_import_anywhere_in_source():
     """Function-level imports too, which importing the modules cannot see."""
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "smoke_parity.py"]
     bad = []
     for f in files:
         for mod in _imported_modules(f):

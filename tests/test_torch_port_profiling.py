@@ -385,11 +385,10 @@ def test_exact_ccl_counts_a_cut_off_chain(max_iters, cut):
     n = 40
     nbr = torch.full((n, 2), -1, dtype=torch.int32)
     nbr[:-1, 0] = torch.arange(1, n, dtype=torch.int32)
-    launches = ccl.LAUNCHES
     with tprof.record() as rec:
         labels, flag = ccl.connected_components_single(nbr, torch.ones(n, dtype=torch.bool),
                                                        max_iters)
-    assert ccl.LAUNCHES == launches and "ccl_exact_launches" not in rec.counts
+    assert "ccl_exact_launches" not in rec.counts
     assert flag.shape == () and flag.dtype == torch.int32
     assert flag == cut and rec.counts["ccl_exact_unconverged"] == cut
     assert rec.counts["ccl_exact_iterations"] == rec.summary()["sync:ccl_exact_converged"]["n"]

@@ -20,6 +20,7 @@ import torch
 from gapartnet_tpu_torch.ops import sparse_conv as ts
 from gapartnet_tpu_torch.ops.voxelize import KEY_SENTINEL
 from gapartnet_tpu_torch.ops.subm_conv import (
+    LAUNCH_COUNTERS,
     subm_conv,
     subm_conv_dgrad,
     subm_conv_dgrad_reference,
@@ -27,8 +28,14 @@ from gapartnet_tpu_torch.ops.subm_conv import (
     subm_conv_wgrad,
     subm_conv_wgrad_reference,
 )
+from gapartnet_tpu_torch.utils import profiling
 
 TOL = 1e-4
+
+
+def _launched(rec):
+    """{kind: launches} of the subm-conv kernels in a profiling recording."""
+    return {kind: rec.counts.get(name, 0) for kind, name in LAUNCH_COUNTERS.items()}
 
 
 def _grid(seed, b=2, cap=300, active=(250, 180), grid=9, extent=None):
@@ -152,10 +159,10 @@ def test_cpu_path_counts_no_launch():
     _, nbr = _grid(1)
     x = torch.from_numpy(rng.randn(2, 300, 8).astype(np.float32)).requires_grad_(True)
     w = torch.from_numpy(rng.randn(27, 8, 4).astype(np.float32)).requires_grad_(True)
-    before = dict(subm_conv.launches)
-    out = subm_conv(x, torch.from_numpy(nbr), w)
-    out.sum().backward()
-    assert subm_conv.launches == before
+    with profiling.record() as rec:
+        out = subm_conv(x, torch.from_numpy(nbr), w)
+        out.sum().backward()
+    assert not any(_launched(rec).values())
     torch.testing.assert_close(out, subm_conv_reference(x, torch.from_numpy(nbr), w), rtol=0, atol=0)
 
 
@@ -311,11 +318,10 @@ def test_kernel_matches_reference_on_card(cin, cout, v, pattern):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     x, w, _, nbr = _card_case(cin, cout, v, pattern, cin * 1000 + cout)
     want = subm_conv_reference(x, nbr, w)
-    before = dict(subm_conv.launches)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.record() as rec:
         got = subm_conv(x, nbr, w)
-    torch.cuda.synchronize()
-    assert subm_conv.launches["fwd"] == before["fwd"] + 1
+        torch.cuda.synchronize()
+    assert _launched(rec)["fwd"] == 1
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     # deterministic: no atomics
     with torch.no_grad():
@@ -340,12 +346,12 @@ def test_kernel_gradients_on_card(cin, cout, v, pattern):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     x, w, g, nbr = _card_case(cin, cout, v, pattern, cin * 1000 + cout + 1)
-    before = dict(subm_conv.launches)
     tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    subm_conv(tx, nbr, tw).backward(g)
-    torch.cuda.synchronize()
-    assert subm_conv.launches["dgrad"] == before["dgrad"] + 1
-    assert subm_conv.launches["wgrad"] == before["wgrad"] + 1
+    with profiling.record() as rec:
+        subm_conv(tx, nbr, tw).backward(g)
+        torch.cuda.synchronize()
+    assert _launched(rec)["dgrad"] == 1
+    assert _launched(rec)["wgrad"] == 1
     want_x = subm_conv_dgrad_reference(g, nbr, w)
     want_w = subm_conv_wgrad_reference(x, nbr, g)
     assert float((tx.grad - want_x).abs().max()) <= TOL * float(want_x.abs().max())
@@ -392,13 +398,12 @@ def test_bf16_kernels_match_reference_on_card(cin, cout, v, pattern):
     from gapartnet_tpu_torch.ops import subm_conv as sc
 
     x, w, g, nbr = _card_case(cin, cout, v, pattern, cin * 1000 + cout + 7)
-    before = dict(sc.LAUNCHES)
     tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    out = sc.subm_conv(tx, nbr, tw, compute_dtype=torch.bfloat16)
-    out.backward(g)
-    torch.cuda.synchronize()
-    launched = {k: sc.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"fwd": 0, "dgrad": 0, "wgrad": 0,
+    with profiling.record() as rec:
+        out = sc.subm_conv(tx, nbr, tw, compute_dtype=torch.bfloat16)
+        out.backward(g)
+        torch.cuda.synchronize()
+    assert _launched(rec) == {"fwd": 0, "dgrad": 0, "wgrad": 0,
                         "fwd_bf16": 1, "dgrad_bf16": 1, "wgrad_bf16": 1}
     want = sc.subm_conv_bf16_reference(x, nbr, w)
     assert float((out.detach() - want).abs().max()) <= TOL * float(want.abs().max())

@@ -31,7 +31,9 @@ tolerance in tests/test_torch_port_trainer.py)."""
 
 import dataclasses
 import json
+import os
 import sys
+import unittest.mock
 import zipfile
 import zlib
 from pathlib import Path
@@ -62,6 +64,17 @@ from tests.test_torch_port_train import _random_stats
 from tests.test_torch_port_trainer import FIT_TOL, N_POINTS, data_root
 
 assert data_root  # a module fixture of the trainer tests, shared here
+
+
+@pytest.fixture(autouse=True)
+def _environment():
+    """Both tools' run_test set GAPARTNET_CHECKS in their own process, and
+    monkeypatch.delenv of an unset variable restores nothing: every test
+    here gets the environment back as it found it, so that no later test
+    (the CLI's subprocess, say) inherits the variable."""
+    with unittest.mock.patch.dict(os.environ):
+        yield
+
 
 TOL = 1e-4
 SMALL_MODEL = dict(EVAL_MODEL, conv_compute_dtype="float32")

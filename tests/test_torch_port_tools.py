@@ -4,10 +4,10 @@ tree through both eval_parity tools (every metric; a staged checkpoint
 stopped by both), the same clouds through both visu tools (results and
 panel bytes), the same render directory through both visualize_render
 tools (PNG and PLY bytes); the inference API's and the demo's trainer
-checkpoints; and chip_smoke.py's reference-layout writer, the inverse of
-the checkpoint converter; and chip_smoke.py's card-vs-CPU request
-comparison where an offset within tolerance moves a point into another
-hash cell.
+checkpoints; and the reference-layout writer (train/ckpt_convert.py), the
+inverse of the checkpoint converter; and the card-vs-CPU request
+comparison (smoke_parity.py) where an offset within tolerance moves a
+point into another hash cell.
 
 The JAX tools are imported through sys.path and run as their own command
 lines (sys.argv); the config each tool builds is monkeypatched to the
@@ -26,18 +26,22 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from gapartnet_tpu.infer import api as japi
 from gapartnet_tpu.models.gapartnet import GAPartNetConfig as JaxConfig
 from gapartnet_tpu.train import config as jconfig
 from gapartnet_tpu.train import trainer as jtrainer
 from gapartnet_tpu_torch.config import GAPartNetConfig
 from gapartnet_tpu_torch.infer import api as tapi
+import smoke_parity as parity
 from gapartnet_tpu_torch.models.gapartnet import GAPartNet
 from gapartnet_tpu_torch.tools import eval_parity, visu, visualize_render
 from gapartnet_tpu_torch.train import config as tconfig
 from gapartnet_tpu_torch.train import trainer as ttrainer
-from gapartnet_tpu_torch.train.ckpt_convert import convert_reference_state_dict
+from gapartnet_tpu_torch.train.ckpt_convert import (
+    convert_reference_state_dict,
+    reference_state_dict,
+    write_reference_ckpt,
+)
 from gapartnet_tpu_torch.weights import params_from_jax
 from tests.test_ckpt_convert import make_reference_state_dict
 from tests.test_torch_port_forward import SMALL
@@ -129,8 +133,8 @@ def eval_ckpts(tmp_path_factory):
     sd = make_reference_state_dict(channels=EVAL_MODEL["channels"], block_repeat=1)
     save_reference_ckpt(d / "rand.ckpt", sd)
     save_reference_ckpt(d / "staged.ckpt", {k: v for k, v in sd.items() if not k.startswith("npcs")})
-    chip_smoke.write_reference_ckpt(d / "init.ckpt", init_state_dict(EVAL_MODEL),
-                                    EVAL_MODEL["channels"], block_repeat=1)
+    write_reference_ckpt(d / "init.ckpt", init_state_dict(EVAL_MODEL), EVAL_MODEL["channels"],
+                         block_repeat=1)
     return d
 
 
@@ -230,7 +234,7 @@ def visu_inputs(tmp_path_factory):
     rng = np.random.RandomState(5)
     pick = np.concatenate([np.arange(len(c["points"])), rng.choice(len(c["points"]), 188)])
     xyz = c["points"][pick, :3] * 2.0 + rng.normal(0, 0.01, (len(pick), 3)) + 0.3
-    chip_smoke.write_obj(d / "scan.obj", xyz, c["points"][pick, 3:])
+    visu.write_obj(d / "scan.obj", xyz, c["points"][pick, 3:])
     with open(d / "scan.obj", "a") as f:
         f.write("vt 0.5 0.5\nv 9 9 9 0 0 0\n")   # vertices after a vt are not read
     return d
@@ -411,7 +415,7 @@ def test_visualize_render_matches_jax_tool(render_dir, tmp_path, monkeypatch):
             visualize_render.main(argv + ["--out", str(tmp_path / "cuda")])
 
 
-# chip_smoke.py's reference-layout writer
+# the reference-layout writer (train/ckpt_convert.py)
 
 @pytest.mark.parametrize("spatial_order", ["xyz", "zyx"])
 @pytest.mark.parametrize("channels,block_repeat", [((8, 16), 2), ((8, 16, 24), 1)])
@@ -424,14 +428,13 @@ def test_reference_writer_round_trips(channels, block_repeat, spatial_order, tmp
                                         spatial_order=spatial_order)
     model = GAPartNet(GAPartNetConfig(channels=channels, block_repeat=block_repeat))
     model.load_state_dict(port, strict=True)
-    written = chip_smoke.reference_state_dict(model.state_dict(), channels, block_repeat,
-                                              spatial_order)
+    written = reference_state_dict(model.state_dict(), channels, block_repeat, spatial_order)
     assert {k: tuple(v.shape) for k, v in written.items()} == {
         k: v.shape for k, v in ref.items()}
     for k, v in ref.items():
         assert written[k].dtype == torch.float32 and np.array_equal(written[k].numpy(), v), k
     path = tmp_path / "ref.ckpt"
-    chip_smoke.write_reference_ckpt(path, port, channels, block_repeat, spatial_order)
+    write_reference_ckpt(path, port, channels, block_repeat, spatial_order)
     back = eval_parity.load_weights(str(path), tconfig.Config(
         model=GAPartNetConfig(channels=channels, block_repeat=block_repeat),
         data=tconfig.DataConfig(), trainer=tconfig.TrainerConfig()), spatial_order)
@@ -446,13 +449,13 @@ def test_reference_writer_staged_and_leftovers():
     sd = convert_reference_state_dict(make_reference_state_dict(channels=(8, 16)),
                                       channels=(8, 16))
     staged = {k: v for k, v in sd.items() if not k.startswith("npcs")}
-    written = chip_smoke.reference_state_dict(staged, (8, 16))
+    written = reference_state_dict(staged, (8, 16))
     assert not any(k.startswith("npcs") for k in written) and "score_head.weight" in written
     with pytest.raises(ValueError, match="not written"):
-        chip_smoke.reference_state_dict({**sd, "extra.weight": torch.zeros(2)}, (8, 16))
+        reference_state_dict({**sd, "extra.weight": torch.zeros(2)}, (8, 16))
 
 
-# chip_smoke.py's card-vs-CPU request comparison, when an offset within the
+# the card-vs-CPU request comparison (smoke_parity.py), when an offset within the
 # forward's tolerance moves a shifted point into another hash cell
 
 @pytest.fixture(scope="module")
@@ -486,7 +489,7 @@ def overflowing_request():
         if valid[n + i]:
             key = tuple(cells[i].tolist()) + (lab[i],)
             nodes[key] = nodes.get(key, 0) + 1
-    tol = chip_smoke.FORWARD_RTOL * float(req.out.offset_preds.abs().max())
+    tol = parity.FORWARD_RTOL * float(req.out.offset_preds.abs().max())
     moves = sorted((float(f if s < 0 else 1 - f) * side, i, a, s)
                    for i in range(n) if valid[n + i]
                    for a in range(3) for s, f in ((-1, frac[i, a]), (1, frac[i, a])))
@@ -511,7 +514,7 @@ def _fake_card_request(inf, pts, offsets, reported=None, proposals=None):
     out = dataclasses.replace(out, offset_preds=offsets if reported is None else reported)
     if proposals is not None:
         out = dataclasses.replace(out, proposals=proposals)
-    keep, result, jobs, fits = chip_smoke._cpu_post(inf, pts, out, None)
+    keep, result, jobs, fits = parity.cpu_post(inf, pts, out, None)
     return tapi.Request(out, keep, result, jobs, fits, None, None)
 
 
@@ -533,7 +536,7 @@ def test_compare_requests_replays_the_clustering(overflowing_request, case, caps
     assert not torch.equal(card.out.counters["ccl_node_overflow"],
                            req.out.counters["ccl_node_overflow"])
     if case == "moved":
-        assert chip_smoke.compare_requests(case, card, inf, pts) == "replay"
+        assert parity.compare_requests(case, card, inf, pts) == "replay"
         log = capsys.readouterr().out
         assert "another hash cell on the card: 1 of" in log
         assert "equal the CPU's clustering of the card's sem_preds and offsets" in log
@@ -542,4 +545,4 @@ def test_compare_requests_replays_the_clustering(overflowing_request, case, caps
              "unreported": "no point in another cell",
              "other_proposals": "CPU clustering of the card's"}[case]
     with pytest.raises(AssertionError, match=match):
-        chip_smoke.compare_requests(case, card, inf, pts)
+        parity.compare_requests(case, card, inf, pts)
