@@ -45,9 +45,10 @@ without foreground points or proposals.  An eval forward issues none.
 Spans (utils/profiling.py): `model:grid` (the input voxel grid, per cloud
 `grid:voxelize`, and its hierarchy), `model:backbone` (with `grid:points`,
 the voxel features gathered to the points), `model:heads` (the sem
-and offset heads and their losses), `model:cluster` (per cloud, then
-`cluster:stack`), `model:proposal_grids` (cube placement, the proposal
-grids, `proposals:features`, `proposals:rep_points`, `proposals:ious`),
+and offset heads and their losses), `model:cluster` (hash clustering: one
+`cluster:batch` for the batch; exact: per cloud, then `cluster:stack`),
+`model:proposal_grids` (cube placement, the proposal grids,
+`proposals:features`, `proposals:rep_points`, `proposals:ious`),
 `model:score` and `model:npcs` (each a UNet, then `score:head` /
 `npcs:head`); in the dense branch `sync:dense_live` (the host reads the
 live proposal count, which sizes the grid pool) and the counters
@@ -72,6 +73,7 @@ from gapartnet_tpu_torch.models.dense_unet import ProposalUNet
 from gapartnet_tpu_torch.models.grouping import (
     PROPOSAL_CELL,
     SampleProposals,
+    cluster_hash_batch,
     cluster_single,
     segmented_dense_voxelize_single,
     segmented_voxelize_single,
@@ -332,17 +334,22 @@ class GAPartNet(nn.Module):
             if has_labels and batch.instance_labels is not None:
                 cluster_valid = cluster_valid & (batch.instance_labels >= 0)
             offs = offset_preds.detach() if cluster_offset_override is None else cluster_offset_override
-            node_cap = min(cfg.hash_node_capacity, cfg.max_points) if cfg.hash_node_capacity else 0
             if proposals_override is not None:
                 prop = proposals_override
+            elif cfg.clustering_impl == "hash":
+                prop = cluster_hash_batch(
+                    pt_xyz, offs, cluster_sem, cluster_valid, cfg.ball_query_radius,
+                    cfg.min_num_points_per_proposal, cfg.max_proposals,
+                    hash_node_capacity=min(cfg.hash_node_capacity, cfg.max_points),
+                    hash_cand_cap=cfg.hash_cand_cap,
+                    hash_max_degree=cfg.hash_max_degree,
+                )
             else:
                 per_cloud = [
                     cluster_single(
                         pt_xyz[i], offs[i], cluster_sem[i], cluster_valid[i],
                         cfg.ball_query_radius, cfg.min_num_points_per_proposal, cfg.max_proposals,
-                        hash_node_capacity=node_cap, hash_cand_cap=cfg.hash_cand_cap,
-                        hash_max_degree=cfg.hash_max_degree, impl=cfg.clustering_impl,
-                        max_num_points_per_query=cfg.max_num_points_per_query,
+                        impl=cfg.clustering_impl, max_num_points_per_query=cfg.max_num_points_per_query,
                         max_num_points_per_query_shift=cfg.max_num_points_per_query_shift,
                     )
                     for i in range(b)

@@ -2,15 +2,17 @@
 
 Counterpart of models/grouping.py: `cluster_single` with both
 implementations (the hash-grid CCL, and the reference's "exact" first-K
-ball query with list CCL), `proposal_cube_coords`,
-`segmented_voxelize_single` (the sparse proposal grid of the train path) and
-`segmented_dense_voxelize_single` (the dense grid of the eval path).  Every
-sample owns exactly 2N proposal "entries" (each valid point appears once
-per clustering set) and at most P proposals; everything downstream indexes
-through (entry_point, entry_proposal, masks).  Spans (utils/profiling.py):
-`cluster:cloud` with its `cluster:compact` (and with exact clustering the
-ops' `cluster:ball_query` and `cluster:ccl`), and `grid:proposals` per
-cloud.
+ball query with list CCL), `cluster_hash_batch` (hash clustering of a whole
+batch in one call, the JAX model's `jax.vmap` of `cluster_single`),
+`proposal_cube_coords`, `segmented_voxelize_single` (the sparse proposal
+grid of the train path) and `segmented_dense_voxelize_single` (the dense
+grid of the eval path).  Every sample owns exactly 2N proposal "entries"
+(each valid point appears once per clustering set) and at most P
+proposals; everything downstream indexes through (entry_point,
+entry_proposal, masks).  Spans (utils/profiling.py): `cluster:batch` a
+batched hash call and `cluster:cloud` a `cluster_single`, each with its
+`cluster:compact` (and with exact clustering the ops' `cluster:ball_query`
+and `cluster:ccl`), and `grid:proposals` per cloud.
 """
 
 from typing import NamedTuple
@@ -19,7 +21,7 @@ import torch
 
 from gapartnet_tpu_torch.ops.ball_query import ball_query_single
 from gapartnet_tpu_torch.ops.ccl import connected_components_single
-from gapartnet_tpu_torch.ops.hash_ccl import hash_connected_components
+from gapartnet_tpu_torch.ops.hash_ccl import hash_connected_components_batch
 from gapartnet_tpu_torch.ops.segment import segment_max, segment_min, segment_sum
 from gapartnet_tpu_torch.ops.voxelize import dedup_keys, div_const, pack_coords
 from gapartnet_tpu_torch.utils.profiling import span
@@ -53,6 +55,89 @@ def stack_proposals(props) -> SampleProposals:
     return SampleProposals(*[torch.stack(list(f)) for f in zip(*props)])
 
 
+def _compact(lab1, lab2, valid, min_num_points_per_proposal: int, max_proposals: int,
+             ccl_overflow, ccl_cand_truncated, ccl_unconverged) -> SampleProposals:
+    """B clouds' component labels (B, N) of both sets -> batched proposals:
+    compact proposal ids in ascending (set, label) order, dropping
+    components below the min-points filter and beyond `max_proposals`."""
+    with span("cluster:compact"):
+        dev = valid.device
+        b, n = valid.shape
+        i32 = torch.int32
+        m = 2 * n
+        dump = torch.full_like(lab1, m)
+        keys = torch.cat([torch.where(valid, lab1, dump), torch.where(valid, n + lab2, dump)], dim=1)
+        sp = torch.arange(n, dtype=i32, device=dev).repeat(b, 2)
+        entry_valid = keys < m
+
+        sizes_raw = torch.zeros((b, m + 1), dtype=i32, device=dev)
+        sizes_raw.scatter_add_(1, keys.long(), torch.ones_like(keys))
+        keep_raw = sizes_raw[:, :m] >= min_num_points_per_proposal
+        compact_of_raw = torch.cumsum(keep_raw.to(i32), 1, dtype=i32) - 1
+        kc = keys.clamp(0, m - 1).long()
+        keep_entry = entry_valid & torch.gather(keep_raw, 1, kc)
+        pid = torch.where(keep_entry, torch.gather(compact_of_raw, 1, kc), torch.full_like(keys, -1))
+        pid = torch.where(pid < max_proposals, pid, torch.full_like(pid, -1))
+        entry_mask = pid >= 0
+
+        num_kept = keep_raw.sum(dim=1).to(i32)
+        num_proposals = torch.clamp(num_kept, max=max_proposals)
+        proposal_size = torch.zeros((b, max_proposals + 1), dtype=i32, device=dev)
+        proposal_size.scatter_add_(
+            1, torch.where(entry_mask, pid, torch.full_like(pid, max_proposals)).long(),
+            torch.ones_like(pid))
+        proposal_mask = torch.arange(max_proposals, device=dev) < num_proposals[:, None]
+    return SampleProposals(
+        entry_point=sp,
+        entry_proposal=pid,
+        entry_mask=entry_mask,
+        proposal_size=proposal_size[:, :max_proposals],
+        proposal_mask=proposal_mask,
+        num_proposals=num_proposals,
+        num_dropped=num_kept - num_proposals,
+        ccl_overflow=ccl_overflow,
+        ccl_cand_truncated=ccl_cand_truncated,
+        ccl_unconverged=ccl_unconverged,
+    )
+
+
+def cluster_hash_batch(
+    pt_xyz: torch.Tensor,
+    offsets: torch.Tensor,
+    sem_preds: torch.Tensor,
+    valid: torch.Tensor,
+    ball_query_radius: float,
+    min_num_points_per_proposal: int,
+    max_proposals: int,
+    hash_node_capacity: int = 0,
+    hash_cand_cap: int = 0,
+    hash_max_degree: int = 24,
+) -> SampleProposals:
+    """B clouds (pt_xyz, offsets (B, N, 3); sem_preds, valid (B, N)) in one
+    hash-CCL call over both sets of every cloud, then one compaction:
+    batched proposals equal to `stack_proposals` of per-cloud
+    `cluster_single(impl="hash")`."""
+    with span("cluster:batch"):
+        dev = pt_xyz.device
+        b, n = pt_xyz.shape[:2]
+        i32 = torch.int32
+        set_mask = (torch.arange(2 * n, device=dev) >= n).expand(b, 2 * n)
+        lab, ccl_overflow, ccl_cand_truncated = hash_connected_components_batch(
+            torch.cat([pt_xyz, pt_xyz + offsets], dim=1),
+            torch.cat([sem_preds, sem_preds], dim=1).to(i32),
+            torch.cat([valid, valid], dim=1),
+            ball_query_radius,
+            node_capacity=2 * hash_node_capacity if hash_node_capacity else 0,
+            set_mask=set_mask,
+            cand_cap=hash_cand_cap,
+            max_degree=hash_max_degree,
+        )
+        # components never span sets, so set-2 labels map back by -n
+        return _compact(lab[:, :n], lab[:, n:] - n, valid, min_num_points_per_proposal,
+                        max_proposals, ccl_overflow, ccl_cand_truncated,
+                        torch.zeros((b,), dtype=i32, device=dev))
+
+
 def cluster_single(
     pt_xyz: torch.Tensor,
     offsets: torch.Tensor,
@@ -72,32 +157,19 @@ def cluster_single(
     proposal ids and drop proposals below the min-points filter.  Proposal
     numbering follows ascending (set, component label).
 
-    impl="hash": both sets in one hash-CCL call.  impl="exact": per set a
-    first-K ball query (K = max_num_points_per_query on xyz,
+    impl="hash": the B = 1 case of `cluster_hash_batch`.  impl="exact": per
+    set a first-K ball query (K = max_num_points_per_query on xyz,
     max_num_points_per_query_shift on xyz + offsets) and list CCL, the
     reference's neighbour semantics; its two hash-CCL counters are zero, and
     `ccl_unconverged` counts the sets whose CCL the iteration cap cut off
     before its fixpoint (zero with impl="hash")."""
     with span("cluster:cloud"):
-        dev = pt_xyz.device
-        n = pt_xyz.shape[0]
-        i32 = torch.int32
         if impl == "hash":
-            both = torch.cat([pt_xyz, pt_xyz + offsets])
-            set_mask = torch.arange(2 * n, device=dev) >= n
-            lab, ccl_overflow, ccl_cand_truncated = hash_connected_components(
-                both,
-                torch.cat([sem_preds, sem_preds]).to(i32),
-                torch.cat([valid, valid]),
-                ball_query_radius,
-                node_capacity=2 * hash_node_capacity if hash_node_capacity else 0,
-                set_mask=set_mask,
-                cand_cap=hash_cand_cap,
-                max_degree=hash_max_degree,
+            prop = cluster_hash_batch(
+                pt_xyz[None], offsets[None], sem_preds[None], valid[None], ball_query_radius,
+                min_num_points_per_proposal, max_proposals, hash_node_capacity, hash_cand_cap,
+                hash_max_degree,
             )
-            # components never span sets, so set-2 labels map back by -n
-            lab1, lab2 = lab[:n], lab[n:] - n
-            ccl_unconverged = torch.zeros((), dtype=i32, device=dev)
         elif impl == "exact":
             nbr1, _ = ball_query_single(pt_xyz, sem_preds, valid, ball_query_radius,
                                         max_num_points_per_query)
@@ -105,45 +177,12 @@ def cluster_single(
             nbr2, _ = ball_query_single(pt_xyz + offsets, sem_preds, valid, ball_query_radius,
                                         max_num_points_per_query_shift)
             lab2, cut2 = connected_components_single(nbr2, valid)
-            ccl_overflow = ccl_cand_truncated = torch.zeros((), dtype=i32, device=dev)
-            ccl_unconverged = cut1 + cut2
+            zero = torch.zeros((1,), dtype=torch.int32, device=pt_xyz.device)
+            prop = _compact(lab1[None], lab2[None], valid[None], min_num_points_per_proposal,
+                            max_proposals, zero, zero, (cut1 + cut2)[None])
         else:
             raise ValueError(f"unknown clustering impl {impl}")
-
-        with span("cluster:compact"):
-            m = 2 * n
-            dump = torch.full_like(lab1, m)
-            keys = torch.cat([torch.where(valid, lab1, dump), torch.where(valid, n + lab2, dump)])
-            sp = torch.cat([torch.arange(n, dtype=i32, device=dev)] * 2)
-            entry_valid = keys < m
-
-            sizes_raw = torch.zeros((m + 1,), dtype=i32, device=dev)
-            sizes_raw.index_add_(0, keys.long(), torch.ones_like(keys))
-            sizes_raw = sizes_raw[:m]
-            keep_raw = sizes_raw >= min_num_points_per_proposal
-            compact_of_raw = torch.cumsum(keep_raw.to(i32), 0, dtype=i32) - 1
-            kc = keys.clamp(0, m - 1).long()
-            keep_entry = entry_valid & keep_raw[kc]
-            pid = torch.where(keep_entry, compact_of_raw[kc], torch.full_like(keys, -1))
-            pid = torch.where(pid < max_proposals, pid, torch.full_like(pid, -1))
-            entry_mask = pid >= 0
-
-            num_kept = keep_raw.sum().to(i32)
-            num_proposals = torch.clamp(num_kept, max=max_proposals)
-            proposal_size = segment_sum(torch.ones((m,), dtype=i32, device=dev), pid, max_proposals, mask=entry_mask)
-            proposal_mask = torch.arange(max_proposals, device=dev) < num_proposals
-        return SampleProposals(
-            entry_point=sp,
-            entry_proposal=pid,
-            entry_mask=entry_mask,
-            proposal_size=proposal_size,
-            proposal_mask=proposal_mask,
-            num_proposals=num_proposals,
-            num_dropped=num_kept - num_proposals,
-            ccl_overflow=ccl_overflow,
-            ccl_cand_truncated=ccl_cand_truncated,
-            ccl_unconverged=ccl_unconverged,
-        )
+        return SampleProposals(*(f[0] for f in prop))
 
 
 def proposal_cube_coords(

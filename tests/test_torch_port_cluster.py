@@ -159,3 +159,126 @@ def test_segmented_voxelize_matches(seed, p):
     if p > 32:
         assert (tp.entry_proposal.numpy() >= 32).any()
         assert ((tgrid.keys.numpy() >> 10) & 1023).max() >= 32
+
+
+def _padded(data, n):
+    """A cloud padded with invalid points to n points."""
+    xyz, sem, valid, off = data
+    k = n - len(xyz)
+    return (np.concatenate([xyz, np.zeros((k, 3), np.float32)]),
+            np.concatenate([sem, np.zeros(k, np.int32)]),
+            np.concatenate([valid, np.zeros(k, bool)]),
+            np.concatenate([off, np.zeros((k, 3), np.float32)]))
+
+
+def _no_points(seed, n=300):
+    xyz, sem, _, off = _cloud(seed, n=n)
+    return xyz, sem, np.zeros(len(xyz), bool), off
+
+
+# name: (clouds, kwargs, MAX_ITERS or None); every batch holds a cloud that
+# hits a cap, one that hits none, and a cloud with no valid point
+BATCHES = {
+    # node cap and candidate cap, both propagation phases
+    "node_and_cand_caps": (
+        [CASES["cand_cap_hit"][0], CASES["node_cap_hit"][0], _cloud(8, n=60), _no_points(9)],
+        dict(node_capacity=256, cand_cap=8, max_degree=12), None),
+    # degree cap, the narrow phase alone
+    "degree_cap": (
+        [_no_points(10), CASES["plain"][0], CASES["full_cand_cap"][0], CASES["degree_cap_hit"][0]],
+        dict(node_capacity=0, cand_cap=32, max_degree=6), None),
+    # the iteration cap cuts some clouds off and not others
+    "iteration_cap": (
+        [CASES["cand_cap_hit"][0], CASES["node_cap_hit"][0], _cloud(8, n=60), _no_points(9)],
+        dict(node_capacity=256, cand_cap=8, max_degree=12), 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BATCHES))
+def test_hash_ccl_batch_matches_per_cloud(name, monkeypatch):
+    """One batched call gives every cloud the labels and both counters of
+    its one-sample call, bitwise, and of `jax.vmap` of the JAX function:
+    clouds that converge after different numbers of iterations, clouds cut
+    off by the iteration cap, a cloud with no valid point."""
+    from gapartnet_tpu_torch.ops import hash_ccl
+    from gapartnet_tpu_torch.utils import profiling
+
+    clouds, kw, max_iters = BATCHES[name]
+    n = max(len(c[0]) for c in clouds)
+    duals = [_dual(*_padded(c, n)) for c in clouds]
+    x, s, v, m = (np.stack(a) for a in zip(*duals))
+
+    def per_cloud():
+        """Each cloud's one-sample result and its iterations per phase."""
+        out, phases = [], []
+        for d in duals:
+            with profiling.record() as rec:
+                out.append(port_ccl(*[torch.from_numpy(a) for a in d[:3]], 0.04,
+                                    set_mask=torch.from_numpy(d[3]), **kw))
+            parents = [s.parent for s in rec.spans if s.name == "ccl:iteration"]
+            phases.append([parents.count(i) for i, s in enumerate(rec.spans)
+                           if s.name == "ccl:propagate"])
+            assert rec.counts["hash_ccl_iterations"] == sum(phases[-1])
+        return out, phases
+
+    uncapped, phases = per_cloud()
+    if max_iters is not None:
+        monkeypatch.setattr(hash_ccl, "MAX_ITERS", max_iters)
+    want, capped = per_cloud()
+    tests = [sum(p) for p in capped]
+    with profiling.record() as rec:
+        got = hash_ccl.hash_connected_components_batch(
+            torch.from_numpy(x), torch.from_numpy(s), torch.from_numpy(v), 0.04,
+            set_mask=torch.from_numpy(m), **kw)
+    assert rec.counts["hash_ccl_clouds"] == len(clouds)
+    # a batch's phase runs until its slowest cloud has converged or the cap
+    assert rec.counts["hash_ccl_iterations"] == rec.summary()["sync:ccl_converged"]["n"] == sum(
+        max(p) for p in zip(*capped))
+    for i, (lab, ovf, trunc) in enumerate(want):
+        np.testing.assert_array_equal(got[0][i].numpy(), lab.numpy(), err_msg=f"cloud {i}")
+        assert (int(got[1][i]), int(got[2][i])) == (int(ovf), int(trunc)), i
+
+    jl, jov, jtr = jax.vmap(lambda a, b, c, d: jax_ccl(
+        a, b, c, 0.04, set_mask=d, probe_impl="sort", max_iters=max_iters or 32, **kw))(
+        jnp.asarray(x), jnp.asarray(s), jnp.asarray(v), jnp.asarray(m))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jov))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jtr))
+
+    # the batch mixes what the case names
+    ovf, trunc = got[1].numpy(), got[2].numpy()
+    assert ((ovf > 0) | (trunc > 0)).any() and ((ovf == 0) & (trunc == 0)).any()
+    empty = [i for i, c in enumerate(clouds) if not c[2].any()]
+    assert len(empty) == 1 and (got[0][empty[0]].numpy() == np.arange(2 * n)).all()
+    assert len({t for i, t in enumerate(tests) if i not in empty}) > 1   # unequal iterations
+    if name == "node_and_cand_caps":
+        assert (ovf > 0).any() and (trunc > 0).any()
+    # a phase that needs more iterations than the cap is cut off
+    cut = [max(p) > (max_iters or 32) for p in phases]
+    if max_iters is not None:
+        assert any(cut) and not all(cut)
+    else:
+        assert not any(cut)
+        assert all(torch.equal(w[0], u[0]) for w, u in zip(want, uncapped))
+
+
+@pytest.mark.parametrize("node_cap,max_props", [(0, 32), (24, 32), (0, 4)])
+def test_cluster_batch_matches_cluster_single(node_cap, max_props):
+    """Every field of the batched hash clustering equals `stack_proposals`
+    of per-cloud `cluster_single`, with proposals dropped beyond the cap
+    and with node-table overflow."""
+    clouds = [_cloud(11 + i, n=400) for i in range(3)] + [_no_points(14, n=400)]
+    x, o, s, v = (torch.from_numpy(np.stack(a)) for a in zip(*[(c[0], c[3], c[1], c[2])
+                                                                 for c in clouds]))
+    kw = dict(hash_node_capacity=node_cap, hash_cand_cap=0, hash_max_degree=24)
+    got = tg.cluster_hash_batch(x, o, s, v, 0.04, 3, max_props, **kw)
+    want = tg.stack_proposals([tg.cluster_single(x[i], o[i], s[i], v[i], 0.04, 3, max_props, **kw)
+                               for i in range(len(clouds))])
+    for f in want._fields:
+        assert getattr(got, f).dtype == getattr(want, f).dtype, f
+        np.testing.assert_array_equal(getattr(got, f).numpy(), getattr(want, f).numpy(), err_msg=f)
+    assert int(got.num_proposals[-1]) == 0 and int(got.num_proposals.sum()) > 0
+    if node_cap:
+        assert (got.ccl_overflow[:-1] > 0).all()
+    if max_props == 4:
+        assert (got.num_dropped[:-1] > 0).all()

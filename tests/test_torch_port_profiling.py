@@ -324,6 +324,43 @@ def test_train_step_spans_and_ccl_syncs(monkeypatch):
     assert "dense_grids_live" not in rec.counts   # training runs the sparse UNets
 
 
+def test_hash_train_step_clusters_the_batch_in_one_call():
+    """With hash clustering a B = 2 train step clusters both clouds in one
+    call: one `cluster:batch` with one `ccl:nodes` inside `model:cluster`,
+    no `cluster:cloud`; `hash_ccl_clouds` counts the batch's clouds and
+    `hash_ccl_iterations` its convergence tests, one `sync:ccl_converged`
+    each."""
+    import numpy as np
+
+    from gapartnet_tpu_torch.config import GAPartNetConfig
+    from gapartnet_tpu_torch.data.synthetic import synthetic_batch
+    from gapartnet_tpu_torch.models.gapartnet import GAPartNet
+    from gapartnet_tpu_torch.structures import PointCloudBatch
+    from gapartnet_tpu_torch.train import loop
+    from gapartnet_tpu_torch.weights import init_weights
+
+    cfg = GAPartNetConfig(**SMALL)
+    model = init_weights(GAPartNet(cfg), torch.Generator().manual_seed(0))
+    opt = loop.adam(model.named_parameters())
+    d = synthetic_batch(np.random.RandomState(0), batch_size=2, num_points=SMALL["max_points"],
+                        num_parts=4, max_instances=SMALL["max_instances"])
+    batch = PointCloudBatch.from_numpy(d, "cpu")
+    inst = batch.instance_labels
+    off = torch.where((inst >= 0)[..., None],
+                      batch.instance_regions[..., :3] - batch.points[..., :3], torch.zeros(()))
+    with tprof.record() as rec:
+        loop.train_step(model, opt, batch, torch.Generator().manual_seed(1), True, True, True,
+                        cluster_sem_override=batch.sem_labels, cluster_offset_override=off)
+    names = _names(rec)
+    assert names.count("cluster:batch") == names.count("ccl:nodes") == 1
+    assert "cluster:cloud" not in names
+    (cluster,) = [s for s in rec.spans if s.name == "cluster:batch"]
+    assert _ancestors(rec, cluster)[0] == "model:cluster"
+    assert rec.counts["hash_ccl_clouds"] == 2
+    assert rec.counts["hash_ccl_iterations"] == names.count("sync:ccl_converged") > 0
+    assert rec.summary()["sync:ccl_constant"]["n"] == 4
+
+
 def test_exact_train_step_ball_query_and_ccl_spans():
     """With exact clustering each cloud runs two ball queries and two CCLs,
     a `cluster:ball_query` and a `cluster:ccl` span each inside its
